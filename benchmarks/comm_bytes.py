@@ -1,4 +1,4 @@
-"""Collective-byte matrix over virtual-device counts (VERDICT r3 next #5).
+"""Collective-byte matrix over virtual-device counts.
 
 For n_devices ∈ {8, 16, 32} (subprocess each — the virtual CPU device count
 is fixed at backend init), lowers the sharded hc and nonuniform steps over

@@ -1,7 +1,7 @@
-"""Measure the G-cycle batched bulk scan (core.nubatch) on TPU at the
-flagship geometry: absolute scipy verification first (backend-miscompile
-defense, CLAUDE.md), then differential device floors for G in {2, 4, 8},
-against the per-cycle macro scan measured the same way."""
+"""Measure the G-cycle batched bulk scan (core.nubatch) at the flagship
+geometry: absolute scipy verification first (backend-miscompile defense),
+then differential device floors for G in {2, 4, 8}, against the
+per-cycle macro scan measured the same way."""
 
 import sys
 import time
@@ -21,8 +21,9 @@ def main(argv=None):
 
     from bfir_tpu.core import nonuniform as NU
     from bfir_tpu.core import nubatch as NB
+    from bfir_tpu.utils import platform
 
-    on_cpu = jax.default_backend() == "cpu"
+    on_cpu = platform.is_cpu()
     C, BLOCK, P = 64, 1024, 128
     if on_cpu:
         spec = NU.NuSpec(block_length=BLOCK, ratio=2, p_head=4, p_tail=2)
@@ -44,13 +45,11 @@ def main(argv=None):
     def scan_for(g):
         if g == 0:
             def f(st, blocks):
-                return NU.process_blocks_nu_fast(
-                    st, co, blocks, interpret=on_cpu, use_pallas=not on_cpu)
+                return NU.process_blocks_nu_fast(st, co, blocks)
         else:
             def f(st, blocks):
                 return NB.process_blocks_nu_gbatch(
-                    st, co, blocks, cycles_per_step=g, interpret=on_cpu,
-                    use_pallas=not on_cpu)
+                    st, co, blocks, cycles_per_step=g)
         return jax.jit(f, donate_argnums=0)
 
     gs = [2, 4] if on_cpu else [2, 4, 8]

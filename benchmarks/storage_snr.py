@@ -1,4 +1,4 @@
-"""Coefficient/ring storage-precision frontier (VERDICT r4 next #1).
+"""Coefficient/ring storage-precision frontier.
 
 Simulates the tail-stage MAC at the flagship geometry with ring+coeff
 planes quantized per candidate scheme and measures output SNR against the

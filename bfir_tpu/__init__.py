@@ -1,11 +1,11 @@
-"""tpu-bfir: a TPU-native partitioned-convolution audio engine.
+"""bfir_tpu: a partitioned-convolution audio engine on JAX accelerators.
 
-A brand-new framework with the capabilities of vsu/foo-dsp-bfir (a foobar2000
-DSP plugin wrapping the BruteFIR partitioned FFT convolution engine), designed
-from scratch for TPU hardware: JAX/XLA for the compute path, `jax.sharding`
-meshes for multi-chip scale, and Pallas kernels for the hot spectrum ops.
+A framework with the capabilities of vsu/foo-dsp-bfir (a foobar2000 DSP
+plugin wrapping the BruteFIR partitioned FFT convolution engine), built on
+JAX/XLA for the compute path (an NVIDIA GPU is the target accelerator) and
+`jax.sharding` meshes for multi-device scale.
 
-Layer map (mirrors SURVEY.md §1, re-designed TPU-first):
+Layer map (mirrors SURVEY.md §1):
 
 - ``core``     — typed specs + the partitioned overlap-save convolver
                  (reference: ``brutefir/fftw_convolver.{cpp,hpp}``,
@@ -20,7 +20,7 @@ Layer map (mirrors SURVEY.md §1, re-designed TPU-first):
 - ``parallel`` — device mesh runtime: sharded engine state, partition psum,
                  ring ppermute streaming (new work; the reference is
                  single-threaded C++ — SURVEY.md §2 "Parallelism")
-- ``kernels``  — Pallas TPU kernels for the hot ops
+- ``kernels``  — the streaming steps' spectrum MACs and the df64 engine
 - ``io``       — WAV file IO (reference: ``libsndfile`` binary + ``buffer.cpp``)
 - ``cli``      — TCP line-protocol control server (reference: ``cli_server/``)
 """

@@ -135,7 +135,7 @@ class AudioServer:
 
     async def _stream_frames(self, reader, writer, sp, rate: int,
                              frame_bytes: int) -> None:
-        """Pipelined data plane (VERDICT r4 weak #3): read, process and
+        """Pipelined data plane: read, process and
         write run as three concurrent coroutines joined by bounded queues,
         so a frame's socket round-trip overlaps the processing of the
         frames behind it instead of serializing with it (the r4 loop was
@@ -292,6 +292,9 @@ def main(argv=None) -> int:
         jax.config.update("jax_platforms", "cpu")
         if args.dtype == "float64":
             jax.config.update("jax_enable_x64", True)
+    from bfir_tpu.utils import platform
+
+    platform.enable_compile_cache()
     args.serve = None  # config_from_args compatibility
     cfg = config_from_args(args)
     from bfir_tpu.cli.store import ConfigStore

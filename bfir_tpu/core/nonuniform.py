@@ -1,11 +1,11 @@
 """Non-uniform (two-stage) partitioned convolution: the streaming engine's
-HBM-traffic breaker.
+memory-traffic breaker.
 
 The uniform engine (reference: brutefir.cpp:244-343, one partition size =
 one block) reads the whole ring + coefficient set every block: at the
 flagship geometry (64 ch x 131072 taps, N=1024, P=128) that is ~134 MB per
-1024-sample block, and the measured streaming floor (0.22 ms/block,
-CLAUDE.md) is exactly that traffic at HBM bandwidth. The reference cannot
+1024-sample block, so its streaming floor is that traffic at device-memory
+bandwidth. The reference cannot
 cheapen this: its per-block MAC loop (convolve_add, fftw_convolver.cpp:
 1429-1525) touches every partition every block by construction.
 
@@ -19,20 +19,6 @@ drops ~4x at the flagship geometry (head 16 partitions at N + tail at M
 touched 1/R as often) with the SAME input->output latency N: the tail's
 first tap starts at offset D*M (D >= 2), so its contribution to an output
 block is computable R blocks before it is needed.
-
-Measured floor (TPU v5e-lite, 64 ch x 131072 taps, differential scans,
-worst-channel SNR 134 dB vs scipy): **0.100 ms/block** vs the uniform hc
-engine's 0.218 — a 2.2x win, close to the ~0.095 the traffic model
-implies. With ``tail_store="bfloat16"`` (EngineConfig.nu_tail_store):
-**0.088 ms/block** (745 M samples/s) at worst-channel 64.1 dB — the
-documented ~56 dB + tail-energy-deficit class.
-
-Round 2 measured 0.179: the gap was NOT scheduling but the tail
-TRANSFORM cost — the radix-4-tail four-step at M = 16384 (h = 8192) burns
-4·2·h·(h/4) = 134 MFLOP/row where the balanced split (factors 64/128,
-MXU-viable at this size) needs 12.6; ops.fft._R4_MAX_H now switches
-formulation by size (measured at [64, 16384]: fwd 145 us vs 380, inverse
-111 vs 370).
 
 Scheduling invariant (the correctness core): with the tail covering taps
 [D*M, D*M + P_tail*M) and a uniform overlap-save engine over M-blocks,
@@ -56,10 +42,10 @@ differential timings in benchmarks/phase_latency.py, reported by bench.py
 each round).
 
 Storage tiers: the tail (and optionally head) ring+coefficient planes can
-be stored as block-scaled integers — ``tail_store="int24"`` is TPU-measured
-FASTER than f32 at >=125 dB (0.0847 vs 0.0913 ms/block, 132.8 dB — the
-session's accelerator default via ``nu_tail_store="auto"``), ``"int16"``
-is the halved-traffic ~86 dB tier; see benchmarks/storage_snr.py for the
+be stored as block-scaled integers — ``tail_store="int24"`` keeps >=125 dB
+at 3 B/elem, ``"int16"`` is the halved-traffic ~86 dB tier (which one
+``nu_tail_store="auto"`` picks is ``utils.platform.default_tail_store``);
+see benchmarks/storage_snr.py for the
 measured precision/traffic frontier and NuSpec.tail_store for the class
 documentation.
 """
@@ -261,50 +247,9 @@ def nu_coeffs(impulse, spec: NuSpec, n_channels: int, scale: float = 1.0,
     )
 
 
-def _tail_mac(ring, coeff, pos, use_pallas: bool, interpret: bool,
-              tile: int = 2048):
-    """Tail-stage MAC: freq-tiled Pallas kernel (the untiled kernel's
-    whole-plane VMEM blocks overflow at Hp = ratio*N/... = 8192) or the jnp
-    reference on CPU. Block-scaled integer planes (IntPlanes — the
-    int24/int16 storage tiers) take the in-kernel-decode variant."""
-    if isinstance(ring, K.IntPlanes):
-        if use_pallas:
-            hp = ring.hi.shape[-1]
-            return K.mac_pallas_hc_tiled_int(ring, coeff, pos,
-                                             tile=min(tile, hp),
-                                             interpret=interpret)
-        return K.mac_reference_hc_int(ring, coeff, pos)
-    c = ring.shape[1] // 2
-    if use_pallas:
-        hp = ring.shape[-1]
-        return K.mac_pallas_hc_tiled(ring, coeff, pos,
-                                     tile=min(tile, hp), interpret=interpret)
-    # reference path: accumulate in f32 even for bf16-stored planes (same
-    # arithmetic as the kernel)
-    ring = ring.astype(jnp.float32) if ring.dtype == jnp.bfloat16 else ring
-    coeff = coeff.astype(jnp.float32) if coeff.dtype == jnp.bfloat16 else coeff
-    cs = coeff.shape[1] // 2  # 1 = shared filter (K.hc_coeffs shared=True)
-    return K.mac_reference_hc(ring[:, :c], ring[:, c:],
-                              coeff[:, :cs], coeff[:, cs:], pos)
-
-
-def _tail_inverse(yr, yi, m: int, use_pallas: bool, interpret: bool):
-    """Overlap-save inverse for an M-block tail fire: the fused balanced
-    Pallas kernel (kernels.fft_fused.irfft_split_hc_tail_balanced — tail
-    selection folded into half-width stage-2 weights; TPU-measured
-    2026-08-21 at [64, 8192]: 64.6 vs 97.0 us for the XLA form, absolute
-    err 1.3e-8 vs float64 numpy) when the kernel path is on and the size
-    is eligible; the XLA four-step + slice otherwise."""
-    h = m
-    # eligibility band: h <= 8192 keeps the kernel's ~6 live [tr, h] tiles
-    # inside scoped VMEM at tr=32 (h=65536 — the three-stage FAR block —
-    # measured 67.5 MB vs the 16 MB limit: compile-time OOM; that stage
-    # keeps the XLA form, amortized 1/64 blocks anyway)
-    if use_pallas and h % 128 == 0 and (h // 128) % 8 == 0 and h <= 8192:
-        from bfir_tpu.kernels import fft_fused as FF
-
-        return FF.irfft_split_hc_tail_balanced(yr, yi, n=2 * m,
-                                               interpret=interpret)
+def _tail_inverse(yr, yi, m: int):
+    """Overlap-save inverse for an M-block tail fire: the inverse transform
+    of the 2M frame, keeping its upper half."""
     return F.irfft_split_hc(yr, yi, n=2 * m)[..., m:]
 
 
@@ -330,19 +275,18 @@ def _ring_insert(ring, xpk, pos):
     return K.IntPlanes(hi=hi, lo=lo, scale=scale)
 
 
-def _tail_step(state: K.HcState, coeff_pk, mblock, use_pallas, interpret):
+def _tail_step(state: K.HcState, coeff_pk, mblock):
     """One overlap-save step of the tail engine on an M-block. Same math as
-    kernels.spectrum_mac.step_hc but with the tiled MAC and the four-step
-    inverse (+ slice) instead of the direct tail basis: at M = 8192 the
-    [Hp, Hp] half-DFT tail basis would be a 256 MB operand — far more
-    traffic than the four-step chain it replaces."""
+    kernels.spectrum_mac.step_hc, with the inverse always taken as a full
+    transform + slice: at M = 8192 a dense [Hp, Hp] half-DFT tail basis
+    (``ops.fft.irfft_hc_tail`` in matmul mode) would be a 256 MB operand."""
     p, c2, hp = _ring_shape(state.ring)
     m = mblock.shape[-1]
     mblock, xpk = K._hc_frame_spectrum(state, mblock, hp)
     pos = jnp.mod(state.blockcounter, p)
     ring = _ring_insert(state.ring, xpk, pos)
-    yr, yi = _tail_mac(ring, coeff_pk, pos, use_pallas, interpret)
-    out = _tail_inverse(yr, yi, m, use_pallas, interpret)
+    yr, yi = K.mac_hc(ring, coeff_pk, pos)
+    out = _tail_inverse(yr, yi, m)
     return K.HcState(ring, mblock, state.blockcounter + 1), out
 
 
@@ -350,13 +294,11 @@ def step_nu(
     state: NuState,
     coeffs: NuCoeffs,
     block: jax.Array,
-    interpret: bool = False,
-    use_pallas: bool = True,
     phase=None,
 ) -> Tuple[NuState, jax.Array]:
     """One N-block through the two-stage engine. Outputs match the uniform
     engine (step_hc at P = p_head + ratio*p_tail) to fp rounding; amortized
-    HBM traffic is ~4x lower at the flagship geometry.
+    memory traffic is ~4x lower at the flagship geometry.
 
     Every phase compiles into the same step: the tail engine fires under
     ``lax.cond`` on phase R-1 (both branches static-shape), so a
@@ -369,8 +311,7 @@ def step_nu(
     r_phase = (jnp.mod(state.head.blockcounter, ratio) if phase is None
                else phase)
 
-    head, y_head = _head_step(state.head, coeffs.head, block, use_pallas,
-                              interpret)
+    head, y_head = _head_step(state.head, coeffs.head, block)
 
     zero = jnp.zeros((), dtype=jnp.int32)
     off = (r_phase * n if phase is None
@@ -384,7 +325,7 @@ def step_nu(
 
     def fire(args):
         tail, pending, inbuf = args
-        tail, z = _tail_step(tail, coeffs.tail, inbuf, use_pallas, interpret)
+        tail, z = _tail_step(tail, coeffs.tail, inbuf)
         pending = jnp.concatenate([pending[1:], z[None]], axis=0)
         return tail, pending
 
@@ -405,41 +346,24 @@ def step_nu(
     return NuState(head, tail, inbuf, pending), out
 
 
-def _hc_mac(ring, coeff, pos, use_pallas, interpret):
-    if isinstance(ring, K.IntPlanes):
-        if use_pallas:
-            hp = ring.hi.shape[-1]
-            return K.mac_pallas_hc_tiled_int(ring, coeff, pos, tile=hp,
-                                             interpret=interpret)
-        return K.mac_reference_hc_int(ring, coeff, pos)
-    c = ring.shape[1] // 2
-    if use_pallas:
-        return K.mac_pallas_hc(ring, coeff, pos, interpret=interpret)
-    cs = coeff.shape[1] // 2  # 1 = shared filter
-    return K.mac_reference_hc(ring[:, :c], ring[:, c:],
-                              coeff[:, :cs], coeff[:, cs:], pos)
-
-
-def _head_step(state: K.HcState, coeff, block, use_pallas, interpret):
+def _head_step(state: K.HcState, coeff, block):
     """Head-stage step: the plain hc step for float-stored heads, or the
-    int-stored variant (quantizing ring insert + in-kernel-decode MAC +
+    int-stored variant (quantizing ring insert + decoding MAC +
     direct half-DFT tail) for NuSpec.head_store int16/int24."""
     if not isinstance(coeff, K.IntPlanes):
-        return K.step_hc(state, coeff, block, interpret=interpret,
-                         use_pallas=use_pallas)
+        return K.step_hc(state, coeff, block)
     p, c2, hp = _ring_shape(state.ring)
     n = block.shape[-1]
     block, xpk = K._hc_frame_spectrum(state, block, hp)
     pos = jnp.mod(state.blockcounter, p)
     ring = _ring_insert(state.ring, xpk, pos)
-    yr, yi = _hc_mac(ring, coeff, pos, use_pallas, interpret)
+    yr, yi = K.mac_hc(ring, coeff, pos)
     out = F.irfft_hc_tail(yr.astype(block.dtype), yi.astype(block.dtype),
                           n=2 * n)
     return K.HcState(ring, block, state.blockcounter + 1), out
 
 
-def _tail_step2(state: K.HcState, coeff_a, coeff_b, mblock, use_pallas,
-                interpret):
+def _tail_step2(state: K.HcState, coeff_a, coeff_b, mblock):
     """Tail step with ONE ring advance and TWO coefficient MACs — the
     transition fire of a live filter change (see step_nu_crossfade)."""
     p, c2, hp = _ring_shape(state.ring)
@@ -447,10 +371,10 @@ def _tail_step2(state: K.HcState, coeff_a, coeff_b, mblock, use_pallas,
     mblock, xpk = K._hc_frame_spectrum(state, mblock, hp)
     pos = jnp.mod(state.blockcounter, p)
     ring = _ring_insert(state.ring, xpk, pos)
-    ya = _tail_mac(ring, coeff_a, pos, use_pallas, interpret)
-    yb = _tail_mac(ring, coeff_b, pos, use_pallas, interpret)
-    za = _tail_inverse(ya[0], ya[1], m, use_pallas, interpret)
-    zb = _tail_inverse(yb[0], yb[1], m, use_pallas, interpret)
+    ya = K.mac_hc(ring, coeff_a, pos)
+    yb = K.mac_hc(ring, coeff_b, pos)
+    za = _tail_inverse(ya[0], ya[1], m)
+    zb = _tail_inverse(yb[0], yb[1], m)
     return K.HcState(ring, mblock, state.blockcounter + 1), za, zb
 
 
@@ -460,8 +384,6 @@ def step_nu_crossfade(
     coeffs_new: NuCoeffs,
     block: jax.Array,
     head_ramp: bool = True,
-    interpret: bool = False,
-    use_pallas: bool = True,
 ) -> Tuple[NuState, jax.Array]:
     """Glitch-free live filter change on the two-stage engine.
 
@@ -496,8 +418,8 @@ def step_nu_crossfade(
         blk, xpk = K._hc_frame_spectrum(state.head, block, hp)
         pos = jnp.mod(state.head.blockcounter, p)
         ring = _ring_insert(state.head.ring, xpk, pos)
-        yo = _hc_mac(ring, coeffs_old.head, pos, use_pallas, interpret)
-        yn = _hc_mac(ring, coeffs_new.head, pos, use_pallas, interpret)
+        yo = K.mac_hc(ring, coeffs_old.head, pos)
+        yn = K.mac_hc(ring, coeffs_new.head, pos)
         out_o = F.irfft_hc_tail(yo[0].astype(blk.dtype),
                                 yo[1].astype(blk.dtype), n=2 * n)
         out_n = F.irfft_hc_tail(yn[0].astype(blk.dtype),
@@ -506,8 +428,7 @@ def step_nu_crossfade(
         y_head = out_o * (1.0 - ramp) + out_n * ramp
         head = K.HcState(ring, blk, state.head.blockcounter + 1)
     else:
-        head, y_head = _head_step(state.head, coeffs_new.head, block,
-                                  use_pallas, interpret)
+        head, y_head = _head_step(state.head, coeffs_new.head, block)
 
     zero = jnp.zeros((), dtype=r_phase.dtype)
     inbuf = jax.lax.dynamic_update_slice(
@@ -518,8 +439,7 @@ def step_nu_crossfade(
     def fire(args):
         tail, pending, inbuf = args
         tail, z_old, z_new = _tail_step2(tail, coeffs_old.tail,
-                                         coeffs_new.tail, inbuf,
-                                         use_pallas, interpret)
+                                         coeffs_new.tail, inbuf)
         m = z_old.shape[-1]
         ramp_m = jnp.arange(m, dtype=z_old.dtype) / (m - 1)
         z = z_old * (1.0 - ramp_m) + z_new * ramp_m
@@ -541,8 +461,6 @@ def step_nu_macro(
     state: NuState,
     coeffs: NuCoeffs,
     mblocks: jax.Array,
-    interpret: bool = False,
-    use_pallas: bool = True,
 ) -> Tuple[NuState, jax.Array]:
     """One full M-cycle (R consecutive N-blocks, ``mblocks`` [R, C, N]) with
     STATIC phases: the R head steps unroll, pending-queue slices are static,
@@ -559,34 +477,30 @@ def step_nu_macro(
     head = state.head
     outs = []
     for i in range(r):  # static unroll: phase is a python int
-        head, y = _head_step(head, coeffs.head, mblocks[i], use_pallas,
-                             interpret)
+        head, y = _head_step(head, coeffs.head, mblocks[i])
         outs.append(y + state.pending[0][:, i * n:(i + 1) * n])
     inbuf = jnp.swapaxes(mblocks, 0, 1).reshape(c, r * n).astype(state.inbuf.dtype)
-    tail, z = _tail_step(state.tail, coeffs.tail, inbuf, use_pallas, interpret)
+    tail, z = _tail_step(state.tail, coeffs.tail, inbuf)
     pending = jnp.concatenate([state.pending[1:], z[None]], axis=0)
     return (NuState(head, tail, inbuf, pending),
             jnp.stack(outs))
 
 
-def process_blocks_nu(state: NuState, coeffs: NuCoeffs, blocks: jax.Array,
-                      interpret: bool = False, use_pallas: bool = True):
+def process_blocks_nu(state: NuState, coeffs: NuCoeffs, blocks: jax.Array):
     """lax.scan of the per-block step over blocks [B, C, N] -> (state, out
     [B, C, N]). Valid from any phase. For M-cycle-aligned bulk streams
     prefer ``process_blocks_nu_fast`` (cond-free macro step; same outputs,
     no per-block tail-state pass-through)."""
 
     def body(st, blk):
-        st, y = step_nu(st, coeffs, blk, interpret=interpret,
-                        use_pallas=use_pallas)
+        st, y = step_nu(st, coeffs, blk)
         return st, y
 
     return jax.lax.scan(body, state, blocks)
 
 
 def process_blocks_nu_fast(state: NuState, coeffs: NuCoeffs,
-                           blocks: jax.Array, interpret: bool = False,
-                           use_pallas: bool = True):
+                           blocks: jax.Array):
     """lax.scan of the macro step over M-cycles: blocks [B, C, N] with B a
     multiple of R, and ``state`` MUST be at phase 0 (caller-checked:
     ``int(state.head.blockcounter) % R == 0`` — engine/session and bench do
@@ -598,8 +512,7 @@ def process_blocks_nu_fast(state: NuState, coeffs: NuCoeffs,
     mcycles = blocks.reshape(b // ratio, ratio, c, n)
 
     def mbody(st, mb):
-        st, y = step_nu_macro(st, coeffs, mb, interpret=interpret,
-                              use_pallas=use_pallas)
+        st, y = step_nu_macro(st, coeffs, mb)
         return st, y
 
     st, ys = jax.lax.scan(mbody, state, mcycles)
@@ -607,26 +520,19 @@ def process_blocks_nu_fast(state: NuState, coeffs: NuCoeffs,
 
 
 # ---------------------------------------------------------------------------
-# Split-tail schedule (VERDICT r4 next #4): the per-block latency smoother.
+# Split-tail schedule: the per-block latency smoother.
 #
 # step_nu's cost is uneven by construction: phase R-1 runs the whole tail
-# fire (forward M-transform + full tail MAC + inverse — ~0.5 ms at the
-# flagship geometry vs ~0.06 ms for other phases). The tail output has R
-# blocks of scheduling slack (D >= 2 guarantees a full M-cycle between an
+# fire (forward M-transform + full tail MAC + inverse). The tail output has
+# R blocks of scheduling slack (D >= 2 guarantees a full M-cycle between an
 # M-block completing and its tail contribution being consumed), so the fire
 # can be SPREAD across the following cycle:
 #
-#   phase 0:      FIRST HALF of the forward M-transform (real packing +
-#                 balanced four-step stage 1 + twiddle,
-#                 ops.fft.rfft_split_hc_partA), staged in the state; the
-#                 completed M-block moves to tail.prev_block here (this
-#                 phase overwrites inbuf slice 0)
-#   phase 1:      second half (stage 2 + untangle, partB) + ring insert
-#                 (+ its assigned MAC band)
-#   phase r>=1:   assigned frequency band(s) of the tail MAC — all
-#                 partitions, one Hp/R slice of the spectrum, written once
-#                 into a carried accumulator (banding by FREQUENCY instead
-#                 of partitions means no accumulator read-modify-write)
+#   phase 0:      forward M-transform of the completed M-block + ring insert
+#   phase r:      frequency band r of the tail MAC — all partitions, one
+#                 Hp/R slice of the spectrum, written once into a carried
+#                 accumulator (banding by FREQUENCY instead of partitions
+#                 means no accumulator read-modify-write)
 #   phase R-1:    last band + the inverse transform; z is appended to a
 #                 pending queue of depth D-1 (one less than step_nu's: the
 #                 append happens one cycle later, so the queue is one
@@ -634,32 +540,21 @@ def process_blocks_nu_fast(state: NuState, coeffs: NuCoeffs,
 #                 z[k] appended at cycle k+1 reaches pending[0] for cycle
 #                 k+D exactly as before).
 #
-# The STAGE-split forward (R >= 4; single-phase otherwise) is what brings
-# the worst phase under 2x the mean: TPU r5 measured the single-phase form
-# at phase0 = 0.230 ms vs mean 0.085 (2.7x) with the forward M-transform
-# (~0.17 ms) dominating. Splitting by CHANNEL halves does NOT work — at 64
-# rows the transform is pass-bound, not row-bound (measured: each half
-# costs nearly the full transform) — so the split rides the balanced
-# four-step's stage boundary instead (half the passes per phase).
-#
-# Amortized cost and SNR are unchanged (same kernels, same arithmetic per
-# M-cycle; the banded MAC accumulates partitions per bin in the same order
-# as the tiled kernel). Outputs are identical to step_nu up to fp rounding.
-# Measured per-phase device times live in benchmarks/phase_latency.py's
-# PHASE_LAT artifact; bench.py reports the worst-phase number each round.
+# Amortized cost and SNR are unchanged (same arithmetic per M-cycle; the
+# banded MAC accumulates partitions per bin in the same order as the full
+# MAC). Outputs are identical to step_nu up to fp rounding. Per-phase
+# device times: benchmarks/phase_latency.py.
 # ---------------------------------------------------------------------------
 
 
 class NuSplitState(NamedTuple):
     """Split-tail streaming state: the two engine states plus the banded
-    MAC accumulator, the staged forward transform, and a depth-(D-1)
-    pending queue."""
+    MAC accumulator and a depth-(D-1) pending queue."""
 
     head: K.HcState
     tail: K.HcState
     acc_r: jax.Array  # [C, Hp_t] f32 banded-MAC accumulator
     acc_i: jax.Array
-    xstage: jax.Array  # [2C, Hp_t] staged mid-transform planes (phase 0)
     inbuf: jax.Array  # [C, M]
     pending: jax.Array  # [D-1, C, M]
 
@@ -701,46 +596,21 @@ def init_nu_split_state(spec: NuSpec, n_channels: int) -> NuSplitState:
         tail=tail,
         acc_r=jnp.zeros((n_channels, hp_t), acc_dt),
         acc_i=jnp.zeros((n_channels, hp_t), acc_dt),
-        xstage=jnp.zeros((2 * n_channels, hp_t), dtype=dt),
         inbuf=jnp.zeros((n_channels, spec.m), dtype=dt),
         pending=jnp.zeros((max(1, spec.delay_blocks - 1), n_channels, spec.m),
                           dtype=dt),
     )
 
 
-def _split_band_mac(ring, coeff, pos, band: int, band_len: int,
-                    use_pallas: bool, interpret: bool):
+def _split_band_mac(ring, coeff, pos, band: int, band_len: int):
     if isinstance(ring, K.IntPlanes):
-        if use_pallas:
-            return K.mac_pallas_hc_band_int(ring, coeff, pos,
-                                            band * band_len, band_len,
-                                            interpret=interpret)
         return K.mac_reference_hc_band_int(ring, coeff, pos,
                                            band * band_len, band_len)
-    if use_pallas:
-        return K.mac_pallas_hc_band(ring, coeff, pos, band * band_len,
-                                    band_len, interpret=interpret)
     return K.mac_reference_hc_band(ring, coeff, pos, band * band_len,
                                    band_len)
 
 
-def _split_schedule(ratio: int, n_channels: int):
-    """Static phase plan: (fwd_split, bands_by_phase). With the two-phase
-    staged forward (R >= 4), bands run on phases 1..R-1 (after the ring
-    insert), the leftover band riding phase 2; the single-phase form keeps
-    band p on phase p."""
-    fwd_split = 2 if ratio >= 4 else 1
-    if fwd_split == 1:
-        bands = {p: [p] for p in range(ratio)}
-    else:
-        bands = {p: [p - 1] for p in range(1, ratio)}
-        bands[2] = [1, ratio - 1]
-        bands[0] = []
-    return fwd_split, bands
-
-
-def _split_phase(state: NuSplitState, coeffs: NuCoeffs, block, phase: int,
-                 use_pallas: bool, interpret: bool):
+def _split_phase(state: NuSplitState, coeffs: NuCoeffs, block, phase: int):
     """One block at STATIC phase ``phase`` (python int) of the split-tail
     schedule. ``step_nu_split`` dispatches dynamically via lax.switch;
     scans and the phase-latency benchmark call this directly."""
@@ -750,88 +620,51 @@ def _split_phase(state: NuSplitState, coeffs: NuCoeffs, block, phase: int,
     c = state.inbuf.shape[0]
     hp_t = state.acc_r.shape[-1]
     band_len = hp_t // spec_ratio
-    fwd_split, bands = _split_schedule(spec_ratio, c)
 
-    head, y_head = K.step_hc(state.head, coeffs.head, block,
-                             interpret=interpret, use_pallas=use_pallas)
+    head, y_head = K.step_hc(state.head, coeffs.head, block)
 
     zero = jnp.zeros((), jnp.int32)
     off = jnp.asarray(phase * n, jnp.int32)
     tail_slice = jax.lax.dynamic_slice(state.pending[0], (zero, off), (c, n))
 
     tail = state.tail
-    xstage = state.xstage
-    if fwd_split == 1:
-        if phase == 0:
-            # the M-block completed last cycle (state.inbuf, BEFORE this
-            # block's slice-0 overwrite) enters the tail ring now
-            p_t = _ring_shape(tail.ring)[0]
-            mold, xpk = K._hc_frame_spectrum(tail, state.inbuf, hp_t)
-            pos = jnp.mod(tail.blockcounter, p_t)
-            ring = _ring_insert(tail.ring, xpk, pos)
-            tail = K.HcState(ring, mold, tail.blockcounter + 1)
-    else:
-        if phase == 0:
-            # first half of the forward M-transform (stage 1 of the
-            # balanced four-step, ops.fft.rfft_split_hc_partA) from the
-            # frame [prev M-block | completed M-block]; the completed
-            # block moves to tail.prev_block (this phase overwrites inbuf
-            # slice 0), the staged planes ride the state
-            mold = state.inbuf
-            frame = jnp.concatenate([tail.prev_block, mold], axis=-1)
-            ar, ai = F.rfft_split_hc_partA(frame)
-            pad = hp_t - ar.shape[-1]
-            xstage = jnp.concatenate(
-                [jnp.pad(ar, ((0, 0), (0, pad))),
-                 jnp.pad(ai, ((0, 0), (0, pad)))], axis=0)
-            tail = K.HcState(tail.ring, mold, tail.blockcounter)
-        elif phase == 1:
-            # second half (stage 2 + untangle) + ring insert
-            hr, hi = F.rfft_split_hc_partB(xstage[:c, :m], xstage[c:, :m],
-                                           2 * m)
-            pad = hp_t - hr.shape[-1]
-            xpk = jnp.concatenate(
-                [jnp.pad(hr, ((0, 0), (0, pad))),
-                 jnp.pad(hi, ((0, 0), (0, pad)))], axis=0)
-            p_t = _ring_shape(tail.ring)[0]
-            pos = jnp.mod(tail.blockcounter, p_t)
-            ring = _ring_insert(tail.ring, xpk, pos)
-            tail = K.HcState(ring, tail.prev_block, tail.blockcounter + 1)
+    if phase == 0:
+        # the M-block completed last cycle (state.inbuf, BEFORE this
+        # block's slice-0 overwrite) enters the tail ring now
+        p_t = _ring_shape(tail.ring)[0]
+        mold, xpk = K._hc_frame_spectrum(tail, state.inbuf, hp_t)
+        pos = jnp.mod(tail.blockcounter, p_t)
+        ring = _ring_insert(tail.ring, xpk, pos)
+        tail = K.HcState(ring, mold, tail.blockcounter + 1)
 
     inbuf = jax.lax.dynamic_update_slice(
         state.inbuf, block.astype(state.inbuf.dtype), (zero, off))
 
-    # band MAC(s): the ring position of the newest slot is (counter-1) mod P
+    # band MAC: the ring position of the newest slot is (counter-1) mod P
     acc_r, acc_i = state.acc_r, state.acc_i
     p_t = _ring_shape(tail.ring)[0]
     pos_now = jnp.mod(tail.blockcounter - 1, p_t)
-    for band in bands[phase]:
-        br, bi = _split_band_mac(tail.ring, coeffs.tail, pos_now, band,
-                                 band_len, use_pallas, interpret)
-        boff = jnp.asarray(band * band_len, jnp.int32)
-        acc_r = jax.lax.dynamic_update_slice(
-            acc_r, br.astype(acc_r.dtype), (zero, boff))
-        acc_i = jax.lax.dynamic_update_slice(
-            acc_i, bi.astype(acc_i.dtype), (zero, boff))
+    br, bi = _split_band_mac(tail.ring, coeffs.tail, pos_now, phase, band_len)
+    boff = jnp.asarray(phase * band_len, jnp.int32)
+    acc_r = jax.lax.dynamic_update_slice(
+        acc_r, br.astype(acc_r.dtype), (zero, boff))
+    acc_i = jax.lax.dynamic_update_slice(
+        acc_i, bi.astype(acc_i.dtype), (zero, boff))
 
     pending = state.pending
     if phase == spec_ratio - 1:
         z = _tail_inverse(acc_r.astype(state.inbuf.dtype),
-                          acc_i.astype(state.inbuf.dtype), m,
-                          use_pallas, interpret)
+                          acc_i.astype(state.inbuf.dtype), m)
         pending = jnp.concatenate([pending[1:], z[None]], axis=0)
 
     out = y_head + tail_slice
-    return NuSplitState(head, tail, acc_r, acc_i, xstage, inbuf,
-                        pending), out
+    return NuSplitState(head, tail, acc_r, acc_i, inbuf, pending), out
 
 
 def step_nu_split(
     state: NuSplitState,
     coeffs: NuCoeffs,
     block: jax.Array,
-    interpret: bool = False,
-    use_pallas: bool = True,
 ) -> Tuple[NuSplitState, jax.Array]:
     """One N-block through the split-tail two-stage engine (phase picked
     dynamically with ``lax.switch``; outputs match ``step_nu`` to fp
@@ -842,14 +675,13 @@ def step_nu_split(
     r_phase = jnp.mod(state.head.blockcounter, ratio)
     branches = [
         (lambda ph: lambda st_blk: _split_phase(
-            st_blk[0], coeffs, st_blk[1], ph, use_pallas, interpret))(ph)
+            st_blk[0], coeffs, st_blk[1], ph))(ph)
         for ph in range(ratio)
     ]
     return jax.lax.switch(r_phase, branches, (state, block))
 
 
-def process_blocks_nu_split(state: NuSplitState, coeffs: NuCoeffs, blocks,
-                            interpret: bool = False, use_pallas: bool = True):
+def process_blocks_nu_split(state: NuSplitState, coeffs: NuCoeffs, blocks):
     """Cond-free scan over M-cycle-aligned blocks [B, C, N] (B a multiple
     of R, state at phase 0): the R phases unroll statically per cycle."""
     b, c, n = blocks.shape
@@ -861,8 +693,7 @@ def process_blocks_nu_split(state: NuSplitState, coeffs: NuCoeffs, blocks,
     def mbody(st, mb):
         outs = []
         for ph in range(ratio):
-            st, y = _split_phase(st, coeffs, mb[ph], ph, use_pallas,
-                                 interpret)
+            st, y = _split_phase(st, coeffs, mb[ph], ph)
             outs.append(y)
         return st, jnp.stack(outs)
 
@@ -888,12 +719,10 @@ def process_blocks_nu_split(state: NuSplitState, coeffs: NuCoeffs, blocks,
 # The reference is strictly uniform-partition (brutefir.cpp:244-343); this
 # and the two-stage engine above are beyond-reference capability.
 #
-# Measured floors (TPU v5e-lite, 64 ch, differential scans, 2026-08-21;
-# worst-channel SNR 133.1 dB vs scipy at 280k taps): the three-stage cost
-# is nearly flat in filter length (~0.18 ms/block) while the two-stage
-# floor grows ~1.7 us per tail partition — 0.121 / 0.171 ms/block at
-# 280k / 512k taps. Crossover ≈ 600k taps (14 s at 44.1 kHz); the session
-# auto mode switches at 640 partitions.
+# The three-stage cost is nearly flat in filter length, while the
+# two-stage cost grows with every tail partition. The session's auto mode
+# switches to three stages at 640 partitions (~650k taps at N = 1024); that
+# crossover has not been measured on the GPU yet.
 # ---------------------------------------------------------------------------
 
 
@@ -995,13 +824,11 @@ def nu3_coeffs(impulse, spec: Nu3Spec, n_channels: int, scale: float = 1.0,
     )
 
 
-def _step_nu_tiled_head(state: NuState, coeffs: NuCoeffs, block, use_pallas,
-                        interpret, phase=None):
-    """``step_nu`` with the HEAD stage run through the freq-tiled MAC +
-    four-step inverse (``_tail_step``): required when the head's own block
-    size is large (the inner engine of the 3-stage schedule runs its head
-    at M1 = 8192, where the untiled kernel's whole-plane VMEM blocks
-    overflow — see ``_tail_mac``). ``phase``: a static int pins the
+def _step_nu_tiled_head(state: NuState, coeffs: NuCoeffs, block, phase=None):
+    """``step_nu`` with the HEAD stage run through ``_tail_step`` (full
+    inverse + slice): required when the head's own block size is large (the
+    inner engine of the 3-stage schedule runs its head at M1 = 8192, where
+    a dense half-DFT tail basis would not fit). ``phase``: a static int pins the
     fire/hold decision at trace time (no ``lax.cond``, no pass-through copy
     of the far ring — the bulk form's requirement); None keeps the dynamic
     cond of ``step_nu``."""
@@ -1009,8 +836,7 @@ def _step_nu_tiled_head(state: NuState, coeffs: NuCoeffs, block, use_pallas,
     ratio = state.inbuf.shape[-1] // n
     r_phase = jnp.mod(state.head.blockcounter, ratio) if phase is None else phase
 
-    head, y_head = _tail_step(state.head, coeffs.head, block, use_pallas,
-                              interpret)
+    head, y_head = _tail_step(state.head, coeffs.head, block)
 
     zero = jnp.zeros((), dtype=jnp.int32)
     off = (r_phase * n if phase is None
@@ -1022,7 +848,7 @@ def _step_nu_tiled_head(state: NuState, coeffs: NuCoeffs, block, use_pallas,
 
     def fire(args):
         tail, pending, inbuf = args
-        tail, z = _tail_step(tail, coeffs.tail, inbuf, use_pallas, interpret)
+        tail, z = _tail_step(tail, coeffs.tail, inbuf)
         pending = jnp.concatenate([pending[1:], z[None]], axis=0)
         return tail, pending
 
@@ -1047,8 +873,6 @@ def step_nu3(
     state: Nu3State,
     coeffs: Nu3Coeffs,
     block: jax.Array,
-    interpret: bool = False,
-    use_pallas: bool = True,
 ) -> Tuple[Nu3State, jax.Array]:
     """One N-block through the three-stage engine (outputs match the
     uniform engine to fp rounding). Structure identical to ``step_nu``; the
@@ -1059,8 +883,7 @@ def step_nu3(
     ratio = state.inbuf.shape[-1] // n
     r_phase = jnp.mod(state.head.blockcounter, ratio)
 
-    head, y_head = K.step_hc(state.head, coeffs.head, block,
-                             interpret=interpret, use_pallas=use_pallas)
+    head, y_head = K.step_hc(state.head, coeffs.head, block)
 
     zero = jnp.zeros((), dtype=r_phase.dtype)
     inbuf = jax.lax.dynamic_update_slice(
@@ -1071,8 +894,7 @@ def step_nu3(
 
     def fire(args):
         tail, pending, inbuf = args
-        tail, z = _step_nu_tiled_head(tail, coeffs.tail, inbuf, use_pallas,
-                                      interpret)
+        tail, z = _step_nu_tiled_head(tail, coeffs.tail, inbuf)
         pending = jnp.concatenate([pending[1:], z[None]], axis=0)
         return tail, pending
 
@@ -1093,13 +915,10 @@ def step_nu_crossfade_tiled_head(
     coeffs_new: NuCoeffs,
     mblock: jax.Array,
     head_ramp: bool = True,
-    interpret: bool = False,
-    use_pallas: bool = True,
 ) -> Tuple[NuState, jax.Array]:
-    """``step_nu_crossfade`` with the tiled-MAC head (``_tail_step``/
+    """``step_nu_crossfade`` with the large-block head (``_tail_step``/
     ``_tail_step2``): the INNER engine's crossfade step of the three-stage
-    transition, running at block size M1 where the untiled head kernel's
-    whole-plane VMEM blocks overflow (see ``_step_nu_tiled_head``). Laws
+    transition, running at block size M1 (see ``_step_nu_tiled_head``). Laws
     identical to ``step_nu_crossfade``: head_ramp=True ramps the head over
     the (M1-sized) change block; the first far fire after the change runs
     both far coefficient sets on one ring advance and stores a full-M2
@@ -1111,13 +930,11 @@ def step_nu_crossfade_tiled_head(
 
     if head_ramp:
         head, za, zb = _tail_step2(state.head, coeffs_old.head,
-                                   coeffs_new.head, mblock, use_pallas,
-                                   interpret)
+                                   coeffs_new.head, mblock)
         ramp = jnp.arange(m1, dtype=za.dtype) / (m1 - 1)
         y_head = za * (1.0 - ramp) + zb * ramp
     else:
-        head, y_head = _tail_step(state.head, coeffs_new.head, mblock,
-                                  use_pallas, interpret)
+        head, y_head = _tail_step(state.head, coeffs_new.head, mblock)
 
     zero = jnp.zeros((), dtype=r_phase.dtype)
     inbuf = jax.lax.dynamic_update_slice(
@@ -1128,8 +945,7 @@ def step_nu_crossfade_tiled_head(
     def fire(args):
         tail, pending, inbuf = args
         tail, z_old, z_new = _tail_step2(tail, coeffs_old.tail,
-                                         coeffs_new.tail, inbuf,
-                                         use_pallas, interpret)
+                                         coeffs_new.tail, inbuf)
         m2 = z_old.shape[-1]
         ramp_m = jnp.arange(m2, dtype=z_old.dtype) / (m2 - 1)
         z = z_old * (1.0 - ramp_m) + z_new * ramp_m
@@ -1154,11 +970,8 @@ def step_nu3_crossfade(
     block: jax.Array,
     head_ramp: bool = True,
     inner_mode: str = "ramp",
-    interpret: bool = False,
-    use_pallas: bool = True,
 ) -> Tuple[Nu3State, jax.Array]:
-    """Glitch-free live filter change on the THREE-stage engine (VERDICT r3
-    next #4): the two-stage crossfade law applied recursively — each stage
+    """Glitch-free live filter change on the THREE-stage engine: the two-stage crossfade law applied recursively — each stage
     bridges at its own natural boundary, so the output stays continuous
     throughout (convolver_crossfade_inplace, fftw_convolver.cpp:275-321,
     composed twice).
@@ -1190,16 +1003,15 @@ def step_nu3_crossfade(
         zero = jnp.zeros((), dtype=pos.dtype)
         ring = jax.lax.dynamic_update_slice(state.head.ring, xpk[None],
                                             (pos, zero, zero))
-        yo = _hc_mac(ring, coeffs_old.head, pos, use_pallas, interpret)
-        yn = _hc_mac(ring, coeffs_new.head, pos, use_pallas, interpret)
+        yo = K.mac_hc(ring, coeffs_old.head, pos)
+        yn = K.mac_hc(ring, coeffs_new.head, pos)
         out_o = F.irfft_hc_tail(yo[0], yo[1], n=2 * n)
         out_n = F.irfft_hc_tail(yn[0], yn[1], n=2 * n)
         ramp = jnp.arange(n, dtype=out_o.dtype) / (n - 1)
         y_head = out_o * (1.0 - ramp) + out_n * ramp
         head = K.HcState(ring, blk, state.head.blockcounter + 1)
     else:
-        head, y_head = K.step_hc(state.head, coeffs_new.head, block,
-                                 interpret=interpret, use_pallas=use_pallas)
+        head, y_head = K.step_hc(state.head, coeffs_new.head, block)
 
     zero = jnp.zeros((), dtype=r_phase.dtype)
     inbuf = jax.lax.dynamic_update_slice(
@@ -1211,8 +1023,7 @@ def step_nu3_crossfade(
         tail, pending, inbuf = args
         tail, z = step_nu_crossfade_tiled_head(
             tail, coeffs_old.tail, coeffs_new.tail, inbuf,
-            head_ramp=(inner_mode == "ramp"), interpret=interpret,
-            use_pallas=use_pallas)
+            head_ramp=(inner_mode == "ramp"))
         pending = jnp.concatenate([pending[1:], z[None]], axis=0)
         return tail, pending
 
@@ -1227,21 +1038,18 @@ def step_nu3_crossfade(
     return Nu3State(head, tail, inbuf, pending), out
 
 
-def process_blocks_nu3(state: Nu3State, coeffs: Nu3Coeffs, blocks,
-                       interpret: bool = False, use_pallas: bool = True):
+def process_blocks_nu3(state: Nu3State, coeffs: Nu3Coeffs, blocks):
     """lax.scan of ``step_nu3`` over [B, C, N] blocks; valid from any
     phase. For M2-cycle-aligned bulk streams prefer
     ``process_blocks_nu3_fast``."""
 
     def body(st, blk):
-        return step_nu3(st, coeffs, blk, interpret=interpret,
-                        use_pallas=use_pallas)
+        return step_nu3(st, coeffs, blk)
 
     return jax.lax.scan(body, state, blocks)
 
 
-def process_blocks_nu3_fast(state: Nu3State, coeffs: Nu3Coeffs, blocks,
-                            interpret: bool = False, use_pallas: bool = True):
+def process_blocks_nu3_fast(state: Nu3State, coeffs: Nu3Coeffs, blocks):
     """Cond-free bulk form: scan over SUPER-cycles of r1*r2 N-blocks with
     every phase static — the outer head steps unroll, the inner engine
     steps once per M1-cycle at a STATIC inner phase (so neither the M1 ring
@@ -1262,13 +1070,11 @@ def process_blocks_nu3_fast(state: Nu3State, coeffs: Nu3Coeffs, blocks,
         outs = []
         for j in range(r2):  # static inner phase j
             for i in range(r1):  # static outer phase i
-                head, y = K.step_hc(head, coeffs.head, sblocks[j, i],
-                                    interpret=interpret, use_pallas=use_pallas)
+                head, y = K.step_hc(head, coeffs.head, sblocks[j, i])
                 outs.append(y + pending[0][:, i * n:(i + 1) * n])
             inbuf = jnp.swapaxes(sblocks[j], 0, 1).reshape(c, r1 * n).astype(
                 inbuf.dtype)
-            tail, z = _step_nu_tiled_head(tail, coeffs.tail, inbuf,
-                                          use_pallas, interpret, phase=j)
+            tail, z = _step_nu_tiled_head(tail, coeffs.tail, inbuf, phase=j)
             pending = jnp.concatenate([pending[1:], z[None]], axis=0)
         return Nu3State(head, tail, inbuf, pending), jnp.stack(outs)
 

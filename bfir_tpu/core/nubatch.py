@@ -7,15 +7,9 @@ partition layout fftw_convolver.cpp:336-466) on the non-uniform schedule of
 iteration consumes G whole M-cycles (G*R N-blocks) and runs every stage as
 ONE batched dispatch instead of G*R (head) / G (tail) small ones.
 
-Why this exists (round 5, measured premise in benchmarks/head_batch_probe):
-the per-block macro scan is dominated by MXU-underfilled [C, 2N] transforms
-(C = 64 rows; fft microbench runs at 0.23 of the matmul-work roofline
-there vs 0.51 at fat shapes) and by coefficient planes re-read from HBM on
-every block (head) / every fire (tail). In bulk mode every block of a
-scan iteration is known up front, so:
+In bulk mode every block of a scan iteration is known up front, so:
 
-- all G*R head forward transforms run as one [G*R*C, 2N] ``rfft_split_hc``
-  (measured 7.9 vs 17.9 us/block at [512,2048] on the flagship geometry);
+- all G*R head forward transforms run as one [G*R*C, 2N] ``rfft_split_hc``;
 - the head MAC becomes a correlation along the BLOCK axis against an
   ordered spectrum history, with the [p_head, 2C, Hp] coefficient planes
   read once per G*R blocks instead of once per block;
@@ -23,7 +17,7 @@ scan iteration is known up front, so:
   [G*C, 2M] forward, a p_tail-tap correlation along the cycle axis (tail
   coefficient planes — 59 MB f32 at the flagship geometry — read once per
   G fires), one batched inverse;
-- both inverses run at G*R*C / G*C rows where the MXU is actually filled.
+- both inverses run as one batched transform each.
 
 The math is identical to R*G calls of ``step_nu`` from phase 0 (same
 spectra, same MAC law incl. the lane-0 halfcomplex fixup, same overlap-save
@@ -50,6 +44,7 @@ import jax.numpy as jnp
 
 from bfir_tpu.ops import fft as F
 from bfir_tpu.kernels import spectrum_mac as K
+from bfir_tpu.utils import platform
 from bfir_tpu.core.nonuniform import (
     NuCoeffs,
     NuSpec,
@@ -151,7 +146,7 @@ def _corr_mac(hist, coeff, nblocks: int):
     ``mac_reference_hc`` (two real products at lane 0: DC.re / Nyquist.re).
     ``hist`` [P-1+nblocks, 2C, Hp] newest-last; coeff [P, 2cs, Hp]
     (cs = C, or 1 for shared filters). XLA fuses the P shifted multiplies
-    into one pass whose hist tiles stay VMEM-resident across the b axis."""
+    and the sum into one elementwise pass."""
     p = coeff.shape[0]
     cs = coeff.shape[1] // 2
     c = hist.shape[1] // 2
@@ -176,13 +171,21 @@ def _corr_mac(hist, coeff, nblocks: int):
     return ar, ai
 
 
+def _mac(hist, coeff, nblocks: int):
+    """The correlation MAC by the route ``utils.platform.corr_mac_route``
+    names: the Triton kernel (``kernels.corr_mac``) or the fused XLA form."""
+    if platform.corr_mac_route() == "triton":
+        from bfir_tpu.kernels.corr_mac import corr_mac_triton
+
+        return corr_mac_triton(hist, coeff, nblocks)
+    return _corr_mac(hist, coeff, nblocks)
+
+
 def step_nu_gbatch(
     gb: NuGBatchState,
     coeffs: NuCoeffs,
     blocks: jax.Array,
     ratio: int,
-    use_pallas: bool = True,
-    interpret: bool = False,
 ) -> Tuple[NuGBatchState, jax.Array]:
     """Process G*R N-blocks ([GR, C, N], M-cycle aligned) in one batched
     pass; returns (state', outputs [GR, C, N])."""
@@ -194,17 +197,10 @@ def step_nu_gbatch(
     hp_h = gb.head_hist.shape[-1]
     hp_t = gb.tail_hist.shape[-1]
 
-    def mac(hist, coeff, nb):
-        if use_pallas:
-            from bfir_tpu.kernels.corr_mac import corr_mac_pallas
-
-            return corr_mac_pallas(hist, coeff, nb, interpret=interpret)
-        return _corr_mac(hist, coeff, nb)
-
     # ---- head: one forward, one correlation MAC, one inverse ----
     xpk = _batch_spectrum(blocks, gb.prev_block, hp_h)
     fh = jnp.concatenate([gb.head_hist.astype(xpk.dtype), xpk], axis=0)
-    ar, ai = mac(fh, coeffs.head, gr)
+    ar, ai = _mac(fh, coeffs.head, gr)
     y_head = F.irfft_hc_tail(
         ar.reshape(gr * c, hp_h), ai.reshape(gr * c, hp_h),
         n=2 * n).reshape(gr, c, n)
@@ -214,10 +210,9 @@ def step_nu_gbatch(
                .transpose(0, 2, 1, 3).reshape(g, c, m))
     txpk = _batch_spectrum(mblocks, gb.prev_mblock, hp_t)
     th = jnp.concatenate([gb.tail_hist.astype(txpk.dtype), txpk], axis=0)
-    br, bi = mac(th, coeffs.tail, g)
+    br, bi = _mac(th, coeffs.tail, g)
     z = _tail_inverse(
-        br.reshape(g * c, hp_t), bi.reshape(g * c, hp_t), m,
-        use_pallas, interpret).reshape(g, c, m)
+        br.reshape(g * c, hp_t), bi.reshape(g * c, hp_t), m).reshape(g, c, m)
 
     # ---- combine: cycle j consumes the tail output queued for it ----
     pend = gb.pending
@@ -249,8 +244,6 @@ def process_blocks_nu_gbatch(
     coeffs: NuCoeffs,
     blocks: jax.Array,
     cycles_per_step: int = 4,
-    interpret: bool = False,
-    use_pallas: bool = True,
 ) -> Tuple[NuState, jax.Array]:
     """Bulk path: lax.scan of ``step_nu_gbatch`` over super-iterations of
     G = ``cycles_per_step`` M-cycles. ``blocks`` [B, C, N] with B a
@@ -269,8 +262,7 @@ def process_blocks_nu_gbatch(
     chunks = blocks.reshape(b // gr, gr, c, n)
 
     def body(st, ch):
-        return step_nu_gbatch(st, coeffs, ch, ratio,
-                              use_pallas=use_pallas, interpret=interpret)
+        return step_nu_gbatch(st, coeffs, ch, ratio)
 
     gb, ys = jax.lax.scan(body, gb, chunks)
     return gbatch_to_nu(gb), ys.reshape(b, c, n)

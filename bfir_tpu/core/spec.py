@@ -1,6 +1,6 @@
 """Typed configuration specs for the engine.
 
-TPU-native re-design of the reference's config surface:
+Accelerator re-design of the reference's config surface:
 
 - sample formats     -> reference ``brutefir/global.h:23-47`` (``BF_SAMPLE_FORMAT_*``,
                         ``sample_format_t``)
@@ -87,7 +87,7 @@ class SampleFormat(enum.Enum):
 # Plugin compile-time constants (foo_dsp_bfir/common.h:17-19).
 DEFAULT_FILTER_LEN = 1024
 DEFAULT_EQ_FILTER_BLOCKS = 64
-# Reference caps channels at 8 (global.h:21). The TPU engine shards channels
+# Reference caps channels at 8 (global.h:21). The engine shards channels
 # over the mesh and has no such hard limit; we keep the reference default as
 # a sanity bound for the streaming plugin-equivalent path only.
 REFERENCE_MAX_CHANNELS = 8
@@ -132,7 +132,7 @@ class FilterSpec:
 
     block_length: int = DEFAULT_FILTER_LEN
     n_partitions: int = 1
-    dtype: str = "float32"  # "float32" (TPU-native) or "float64" (CPU parity)
+    dtype: str = "float32"  # "float32" (accelerator default) or "float64" (parity)
 
     def __post_init__(self):
         if self.block_length < 2 or (self.block_length & (self.block_length - 1)):
@@ -237,7 +237,7 @@ class DelaySpec:
     rings with runtime changes (`delay.cpp:495-600` change_delay) and
     subsample sinc-bank delays (`delay.cpp:182-306` subsample_init /
     sample_sinc) — but neither the reference plugin nor its config surface
-    exposes it (VERDICT r3 missing #3). Here it is a first-class config
+    exposes it. Here it is a first-class config
     field applied to the engine output (ops/delay.py), the reference
     engine's delay placement (brutefir.cpp output path).
 
@@ -314,38 +314,33 @@ class EngineConfig:
     overflow_warnings: bool = False
     cli_enabled: bool = False
     cli_port: int = 3000  # default_cfg_cli_port (common.h:23)
-    # streaming compute path: "auto" picks the halfcomplex Pallas kernel on
-    # TPU and the complex-dtype jnp path on CPU — except for float64
-    # requests on f64-less backends, where it picks "extended" (df64
+    # streaming compute path: "auto" picks, on an accelerator, the
+    # two-stage "nonuniform" engine for long filters (>= 32 partitions),
+    # "nonuniform3" for very long ones (>= 640) and the halfcomplex "hc"
+    # engine otherwise; on the CPU the complex-dtype jnp path — except for
+    # float64 requests with x64 off, where it picks "extended" (df64
     # two-float arithmetic, kernels/extended.py: the honest REALSIZE=8
-    # parity on an f32-only chip). Force with
+    # parity in float32). Force with
     # "complex"/"packed"/"hc"/"extended"; "sharded" runs the multi-device
     # ppermute engine (parallel/sharded.py) over the session's mesh (all
     # visible devices by default); "nonuniform" runs the two-stage
-    # Gardner-partition engine (core/nonuniform.py: measured 0.100 vs
-    # 0.218 ms/block for long filters at the same one-block latency);
-    # "nonuniform3" the recursively composed three-stage engine for very
-    # long filters (auto above 256 partitions)
+    # Gardner-partition engine (core/nonuniform.py: ~4x fewer MAC bytes
+    # per block for long filters at the same one-block latency);
+    # "nonuniform3" the recursively composed three-stage engine
     engine_mode: str = "auto"
     # run a known-answer self-check of the exact compiled graph at every
     # coefficient build (engine/selfcheck.py); on failure the session falls
     # back to the next implementation instead of producing wrong audio
     self_check: bool = True
-    # persist compiled executables to the profile dir (engine/wisdom.py —
-    # the FFTW-wisdom analogue, fftw_convolver.cpp:81-137; unlike the XLA
-    # compilation cache it covers Pallas/Mosaic kernels, skipping their
-    # cold compile on session re-opens)
-    use_wisdom: bool = True
     # tail-stage storage for the nonuniform engine (MAC still accumulates
     # f32; only streamed bytes change). "int24" (3 B/elem, ~134 dB MAC SNR)
-    # is the quality-preserving fast tier (TPU-measured r5: 0.0847 vs f32's
-    # 0.0913 ms/block at 132.8 dB, same-session differentials); "int16"
-    # (2 B/elem, ~86 dB) the halved-traffic point; "bfloat16" the legacy
-    # ~56 dB tier. Measured frontier: benchmarks/storage_snr.py;
-    # core/nonuniform.NuSpec.tail_store. "auto" (default) resolves to
-    # int24 for the single-chip nonuniform engine on accelerators (the
-    # known-answer self-check still gates it at open) and float32
-    # elsewhere; the sharded engines support float32/bfloat16 only.
+    # is the quality-preserving reduced-byte tier; "int16" (2 B/elem,
+    # ~86 dB) the halved-traffic point; "bfloat16" the legacy ~56 dB tier.
+    # Measured frontier: benchmarks/storage_snr.py;
+    # core/nonuniform.NuSpec.tail_store. "auto" (default) resolves through
+    # utils.platform.default_tail_store (int24 for the single-device
+    # two-stage engine on the GPU, float32 elsewhere); the sharded engines
+    # support float32/bfloat16 only.
     nu_tail_store: str = "auto"
     # head-stage storage for the nonuniform engine (float32/int16/int24 —
     # no bfloat16: the head carries the signal's leading energy); same
@@ -354,8 +349,8 @@ class EngineConfig:
     # shard-local compute of engine_mode="sharded": "auto" picks the
     # three-stage engine for very long filters (>= 640 partitions, the
     # single-chip crossover), the two-stage nonuniform engine for long
-    # filters on accelerator meshes (the pod form of the fastest
-    # single-chip engine) and the uniform engine otherwise;
+    # filters on accelerator meshes (the mesh form of the single-chip
+    # long-filter engine) and the uniform engine otherwise;
     # "uniform"/"nonuniform"/"nonuniform3" force the choice
     # (parallel.sharded.ShardedEngine local_impl)
     sharded_local: str = "auto"

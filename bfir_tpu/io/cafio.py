@@ -46,7 +46,7 @@ def _parse(path: str, want_data: bool):
             (size,) = struct.unpack(">q", ch[4:12])
             if ctype == b"desc":
                 body = f.read(32)
-                if len(body) != 32:  # named error, not struct.error (ADVICE r3)
+                if len(body) != 32:  # named error, not struct.error
                     raise ValueError("truncated CAF desc chunk")
                 (rate, fmt, flags, bpp, fpp, nch, bits) = struct.unpack(
                     ">d4sIIIII", body)

@@ -4,7 +4,7 @@ minimal encoder (fixed predictors + rice) for writing/tests.
 The reference loads impulse responses through libsndfile, which accepts any
 format it was built with — including FLAC (/root/reference/brutefir/
 buffer.cpp:37-139 simply calls sf_wchar_open on whatever path it is given).
-Round 1 of this repo was WAV-only (VERDICT r1 missing #3); this module
+Round 1 of this repo was WAV-only; this module
 closes the gap natively: no external binaries, numpy-assisted bit twiddling.
 
 Decoder coverage: STREAMINFO parsing, fixed + variable blocking, all

@@ -1,6 +1,6 @@
 """Ogg/Vorbis read/write via the system libvorbis (ctypes).
 
-Closes the compressed-major breadth gap (VERDICT r4 missing #3) the same
+Closes the compressed-major breadth gap the same
 way the reference does: the reference's libsndfile does not implement
 Vorbis itself either — it links the Xiph libvorbis/libvorbisenc/libogg
 (sndfile.h major SF_FORMAT_OGG; libsndfile/src/ogg_vorbis.c delegates to

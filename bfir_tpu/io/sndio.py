@@ -11,7 +11,7 @@ buffer.cpp:37-139). This module dispatches on the file's magic bytes:
 - .snd (AU)  -> io.auio (PCM/float/mu-law/a-law)
 - caff (CAF) -> io.cafio (linear PCM/float)
 - anything else -> optional ``soundfile`` if installed, otherwise a clear
-  error NAMING the detected format (VERDICT r1 next #7).
+  error NAMING the detected format.
 
 Writing stays WAV (the reference writes only WAV caches, buffer.cpp:96-139)
 plus FLAC via flacio.write_flac.
@@ -28,7 +28,7 @@ import numpy as np
 # recognizable magic and is not decoded natively here, plus common lossy
 # codecs libsndfile itself rejects — so an unsupported impulse file always
 # produces an error NAMING its format, never a silent failure
-# (VERDICT r3 next #8). Ordered dict: first prefix match wins.
+# Ordered dict: first prefix match wins.
 _MAGIC_NAMES = {
     b"OggS": "Ogg (Vorbis/Opus)",                 # SF_FORMAT_OGG
     b"ID3": "MP3 (ID3)",
@@ -132,7 +132,7 @@ def read(path: str) -> Tuple[np.ndarray, int]:
         # SF_FORMAT_OGG: decode via the system libvorbis, exactly the
         # delegation the reference's libsndfile performs (ogg_vorbis.c ->
         # vorbisfile); the soundfile fallback below covers Opus-in-Ogg or
-        # a libvorbis-less host (io/oggvorbis.py, VERDICT r4 missing #3)
+        # a libvorbis-less host (io/oggvorbis.py)
         from bfir_tpu.io import oggvorbis
 
         if oggvorbis.available():

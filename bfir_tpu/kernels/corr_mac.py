@@ -1,36 +1,27 @@
-"""Correlation MAC kernel for the G-cycle batched bulk scan.
+"""Correlation MAC of the G-cycle batched bulk scan as a GPU kernel
+(Pallas, Triton route).
 
-Computes, for an ordered (newest-last) spectrum history ``hist``
-[P-1+B, 2C, Hp] and coefficient planes ``coeff`` [P, 2cs, Hp]
-(cs = C, or 1 for shared filters), the B batched halfcomplex MACs
+For an ordered (newest-last) spectrum history ``hist`` [P-1+B, 2C, Hp] and
+coefficient planes ``coeff`` [P, 2cs, Hp] (cs = C, or 1 for shared
+filters) it computes the B batched halfcomplex MACs
 
     out[b] = sum_q coeff[q] (*) hist[P-1+b-q],   b = 0..B-1
 
 with the lane-0 fixup of ``mac_reference_hc`` (lane 0 packs DC.re and
-Nyquist.re — two independent real products). This is the partitioned
-overlap-save MAC law of /root/reference/brutefir/fftw_convolver.cpp:
-1429-1525, applied along the block axis of a bulk batch.
+Nyquist.re — two independent real products). The plain version is
+``core.nubatch._corr_mac``, which XLA fuses into one elementwise pass that
+reads P history rows and P coefficient rows for every output element.
 
-Why a kernel: the XLA formulation (P shifted elementwise multiplies,
-core/nubatch._corr_mac) materializes every [B, C, Hp] window product in
-HBM — measured 0.27 ms/block at the flagship geometry vs 0.089 for the
-per-cycle engine it was meant to beat. Here the grid walks Hp tiles; each
-program keeps its history and coefficient slabs VMEM-resident and emits a
-B-chunk of outputs from them, so HBM sees history, coefficients and
-outputs ~once per call instead of the per-block engines' P planes
-re-read every block.
+Each program here owns one channel, one frequency tile of ``block_f``
+lanes and ``block_b`` consecutive outputs, and keeps their accumulators in
+registers while it walks the P taps: a coefficient row is loaded once per
+tap and reused across the ``block_b`` outputs, and consecutive taps read
+history rows shifted by one, which the L1 cache serves (the shared-memory
+overlap-save idea of arXiv:1910.01972). Lane-0 handling costs one select
+per tap on the coefficient row:
 
-Lane-0 handling without per-tap selects (select temporaries blew the
-Mosaic stack past the 16 MB scoped-VMEM limit at the flagship geometry):
-the law
-
-    dr = cr*wr - ci*wi        di = cr*wi + ci*wr      (lanes > 0)
-    dr = cr*wr                di = ci*wi              (lane 0)
-
-is computed as  dr = cr*wr - B*wi,  di = A*wi + B*wr  with the
-precomputed planes  A = cr, B = ci  everywhere except lane 0, where
-A = ci, B = 0.  Both branches collapse into one 4-multiply form and the
-fixup costs nothing in-kernel.
+    dr = cr*wr - b*wi,   di = a*wi + b*wr,   (a, b) = (cr, ci), or (ci, 0)
+    at lane 0.
 """
 
 from __future__ import annotations
@@ -41,22 +32,46 @@ from typing import Tuple
 import jax
 import jax.numpy as jnp
 
-# scoped-VMEM budget for one program's live slabs: inputs are
-# double-buffered across grid steps and the Mosaic stack keeps ~one set of
-# product temporaries live, so the model charges 2x inputs + 6x the output
-# chunk; 11 MB of the 16 leaves headroom for layout padding
-_VMEM_BUDGET = 11 * 2 ** 20
+from bfir_tpu.utils import platform
 
 
-def _fits(h_rows: int, c_rows: int, out_rows: int, tf: int) -> bool:
-    return (2 * (h_rows + c_rows) + 6 * out_rows) * tf * 4 <= _VMEM_BUDGET
+def _kernel(hist_ref, co_ref, yr_ref, yi_ref, *, p: int, c: int, cs: int,
+            bc: int, ft: int):
+    from jax.experimental import pallas as pl
+
+    ch = pl.program_id(0)
+    f0 = pl.program_id(1) * ft
+    b0 = pl.program_id(2) * bc
+    cc = ch if cs > 1 else 0
+    lane0 = (f0 + jnp.arange(ft)) == 0
+    acc_r = jnp.zeros((bc, ft), jnp.float32)
+    acc_i = jnp.zeros((bc, ft), jnp.float32)
+    for q in range(p):  # static: P is small, and unrolling lets loads overlap
+        rows = pl.ds(b0 + (p - 1 - q), bc)
+        wr = hist_ref[rows, ch, pl.ds(f0, ft)]
+        wi = hist_ref[rows, ch + c, pl.ds(f0, ft)]
+        cr = co_ref[q, cc, pl.ds(f0, ft)]
+        ci = co_ref[q, cc + cs, pl.ds(f0, ft)]
+        a = jnp.where(lane0, ci, cr)[None, :]
+        b = jnp.where(lane0, 0.0, ci)[None, :]
+        acc_r = acc_r + cr[None, :] * wr - b * wi
+        acc_i = acc_i + a * wi + b * wr
+    yr_ref[pl.ds(b0, bc), ch, pl.ds(f0, ft)] = acc_r
+    yi_ref[pl.ds(b0, bc), ch, pl.ds(f0, ft)] = acc_i
 
 
-@functools.partial(jax.jit, static_argnames=("nblocks", "interpret"))
-def corr_mac_pallas(hist: jax.Array, coeff: jax.Array, nblocks: int,
-                    interpret: bool = False) -> Tuple[jax.Array, jax.Array]:
+@functools.partial(jax.jit, static_argnames=(
+    "nblocks", "block_b", "block_f", "num_warps"))
+def corr_mac_triton(hist: jax.Array, coeff: jax.Array, nblocks: int,
+                    block_b: int = 8, block_f: int = 512,
+                    num_warps: int = 4) -> Tuple[jax.Array, jax.Array]:
     """(yr, yi) [nblocks, C, Hp] f32 from hist [P-1+nblocks, 2C, Hp] and
-    coeff [P, 2cs, Hp]."""
+    coeff [P, 2cs, Hp]. ``block_b``/``block_f`` are the program's output
+    rows and lanes (powers of two; clipped to nblocks / Hp). Compiled for
+    the GPU; interpreted on the CPU, which has no Triton lowering."""
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import triton as plgpu
+
     h, c2, hp = hist.shape
     p = coeff.shape[0]
     cs = coeff.shape[1] // 2
@@ -64,77 +79,20 @@ def corr_mac_pallas(hist: jax.Array, coeff: jax.Array, nblocks: int,
     b = nblocks
     if h != p - 1 + b:
         raise ValueError(f"hist rows {h} != P-1+B = {p - 1 + b}")
-
-    # lane-0-folded planes (see module docstring): [P, 3cs, Hp]
-    cr = coeff[:, :cs]
-    ci = coeff[:, cs:]
-    lane0 = (jnp.arange(hp) == 0)
-    a_pl = jnp.where(lane0, ci, cr)
-    b_pl = jnp.where(lane0, jnp.zeros_like(ci), ci)
-    ck = jnp.concatenate([cr, a_pl, b_pl], axis=1)
-
-    # output-chunk size: largest power-of-two block count whose slabs fit
-    # scoped VMEM at the minimum 128-lane tile
-    nb = b
-    while nb > 1 and not _fits((p - 1 + nb) * c2, p * 3 * cs, 2 * nb * c,
-                               128):
-        nb //= 2
-
-    yrs, yis = [], []
-    for s in range(0, b, nb):
-        bb = min(nb, b - s)
-        win = jax.lax.slice_in_dim(hist, s, s + p - 1 + bb, axis=0)
-        yr, yi = _corr_chunk(win, ck, bb, interpret)
-        yrs.append(yr)
-        yis.append(yi)
-    if len(yrs) == 1:
-        return yrs[0], yis[0]
-    return jnp.concatenate(yrs), jnp.concatenate(yis)
-
-
-def _corr_chunk(hist, ck, b: int, interpret: bool):
-    from jax.experimental import pallas as pl
-
-    h, c2, hp = hist.shape
-    p = ck.shape[0]
-    cs3 = ck.shape[1]
-    cs = cs3 // 3
-    c = c2 // 2
-    tf = hp
-    while tf > 128 and not _fits(h * c2, p * cs3, 2 * b * c, tf):
-        tf //= 2
-    if hp % tf:
-        raise ValueError(f"Hp {hp} not a multiple of the {tf} lane tile")
-
-    def kernel(h_ref, c_ref, yr_ref, yi_ref):
-        acc_r = jnp.zeros((b, c, tf), jnp.float32)
-        acc_i = jnp.zeros((b, c, tf), jnp.float32)
-        for q in range(p):
-            w = h_ref[p - 1 - q:p - 1 - q + b]  # [B, 2C, TF] static slice
-            wr = w[:, :c]
-            wi = w[:, c:]
-            crq = c_ref[q, :cs]
-            aq = c_ref[q, cs:2 * cs]
-            bq = c_ref[q, 2 * cs:]
-            acc_r = acc_r + (crq * wr - bq * wi)
-            acc_i = acc_i + (aq * wi + bq * wr)
-        yr_ref[...] = acc_r
-        yi_ref[...] = acc_i
-
+    bc = min(block_b, b)
+    ft = min(block_f, hp)
+    if b % bc or hp % ft or bc & (bc - 1) or ft & (ft - 1):
+        raise ValueError(
+            f"tiles ({bc} blocks, {ft} lanes) must be powers of two "
+            f"dividing ({b}, {hp})")
+    kernel = functools.partial(_kernel, p=p, c=c, cs=cs, bc=bc, ft=ft)
+    out = jax.ShapeDtypeStruct((b, c, hp), jnp.float32)
     return pl.pallas_call(
         kernel,
-        grid=(hp // tf,),
-        in_specs=[
-            pl.BlockSpec((h, c2, tf), lambda j: (0, 0, j)),
-            pl.BlockSpec((p, cs3, tf), lambda j: (0, 0, j)),
-        ],
-        out_specs=[
-            pl.BlockSpec((b, c, tf), lambda j: (0, 0, j)),
-            pl.BlockSpec((b, c, tf), lambda j: (0, 0, j)),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((b, c, hp), jnp.float32),
-            jax.ShapeDtypeStruct((b, c, hp), jnp.float32),
-        ],
-        interpret=interpret,
-    )(hist.astype(jnp.float32), ck.astype(jnp.float32))
+        grid=(c, hp // ft, b // bc),
+        out_shape=[out, out],
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=num_warps),
+        interpret=platform.pallas_interpret(),
+        name="corr_mac",
+    )(hist.astype(jnp.float32), coeff.astype(jnp.float32))

@@ -1,20 +1,20 @@
-"""Extended-precision (df64) streaming engine path for f32-only TPUs.
+"""Extended-precision (df64) streaming engine path in float32 arithmetic.
 
 The reference plugin runs REALSIZE=8 — C double end-to-end
 (/root/reference/foo_dsp_bfir/common.h:17, fftw_convolver.cpp double
-mirrors :1558-2251). This backend has no f64 compute, so the honest
+mirrors :1558-2251). Without float64 compute (x64 off) the honest
 equivalent is double-float: every spectrum (ring, coefficients,
 accumulator) is an unevaluated two-f32 sum with ~49-bit significands, the
 transforms are the df64 four-step (ops.df64), and the partition MAC is
-compensated elementwise arithmetic on the VPU.
+compensated elementwise arithmetic.
 
-Measured f32 error budget (CLAUDE.md): all-f32 127 dB; the transforms,
+Measured f32 error budget (CPU, float64 scipy oracle): all-f32 127 dB; the transforms,
 then the f32 spectra storage, are the caps. This path lifts both:
 CPU-measured SNR vs a float64 scipy oracle rises from ~127 dB (f32 hc
 path) to ~180+ dB at the same partition depth.
 
-Cost: roughly 2x HBM traffic (two planes per array) and VPU-bound
-transform stages — the price of precision; streaming stays comfortably
+Cost: roughly 2x memory traffic (two planes per array) and elementwise-
+bound transform stages — the price of precision; streaming stays comfortably
 real-time. Layout mirrors the hc path (kernels.spectrum_mac): packed
 [P, 2C, Hp] planes, Nyquist in the DC imaginary lane, lane-0 products
 fixed up to two real multiplies.

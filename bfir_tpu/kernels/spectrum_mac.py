@@ -1,27 +1,28 @@
-"""Pallas TPU kernel: fused partition MAC over the delayed-spectrum ring.
+"""Partition MAC over the delayed-spectrum ring, and the streaming steps
+built on it.
 
-The streaming hot loop's dominant HBM traffic is the frequency-domain MAC
-(reference: the convolve/convolve_add loop, brutefir.cpp:279-300, backed by
-the hand-unrolled SSE loops fftw_convolver.cpp:1429-1525). The jnp rolled
-formulation (`core.convolver.step_rolled`) physically rotates the ring every
-block: read P·C·F + write P·C·F just for the roll, then read ring + coeffs
-again for the MAC.
+The streaming hot loop's dominant memory traffic is the frequency-domain
+MAC (reference: the convolve/convolve_add loop, brutefir.cpp:279-300,
+backed by the hand-unrolled SSE loops fftw_convolver.cpp:1429-1525). The
+rolled formulation (``core.convolver.step_rolled``) physically rotates the
+ring every block: read P·C·F + write P·C·F just for the roll, then read
+ring + coeffs again for the MAC.
 
-This kernel removes the roll entirely: the ring stays fixed in HBM, one slot
-is overwritten per block, and the kernel walks partitions with a
-*scalar-prefetched* ring index — partition p reads slot ``(pos - p) mod P``
-(exactly brutefir.cpp:292-295's ``(blockcounter - i) % n_blocks``) while the
-output accumulates in VMEM across grid steps. Traffic per block: ring read
-once, coeffs read once, y written once — the HBM-bandwidth floor.
+The steps here keep the ring fixed in device memory, overwrite one slot per
+block, and read partition p from slot ``(pos - p) mod P`` (exactly
+brutefir.cpp:292-295's ``(blockcounter - i) % n_blocks``). The MACs are
+plain ``jax.numpy`` (``_mac_slots``): XLA fuses the P ring-slot reads, the
+complex multiplies and the partition sum into one elementwise pass, so
+ring and coefficients are read once and y is written once per block — the
+memory-bandwidth floor.
 
-Complex spectra are carried as split re/im planes (Pallas TPU has no complex
-dtype; see ops.fft split API). A jnp reference implementation with identical
-semantics (`mac_reference`) backs CPU execution and the correctness tests.
+Complex spectra are carried as split re/im planes (see the ops.fft split
+API); the halfcomplex form packs the Nyquist bin into lane 0 of the
+imaginary plane.
 """
 
 from __future__ import annotations
 
-import functools
 from typing import Tuple
 
 import jax
@@ -29,247 +30,50 @@ import jax.numpy as jnp
 import numpy as np
 
 
-def mac_reference(ring_re, ring_im, coeff_re, coeff_im, pos):
-    """jnp reference: y = sum_p coeff[p] * ring[(pos - p) mod P] (complex
-    multiply on split planes)."""
+def _mac_slots(ring_re, ring_im, coeff_re, coeff_im, pos, lane0: bool):
+    """y = sum_p coeff[p] * ring[(pos - p) mod P] on split planes, written
+    as P unrolled ring-slot reads accumulated in registers: XLA emits one
+    elementwise loop fusion that reads every ring slot and coefficient row
+    once (on an H100, 83% of HBM bandwidth at the flagship tail planes;
+    PERF.md).
+    ``lane0``: halfcomplex planes, whose lane 0 holds (DC.re, Nyquist.re)
+    and takes two real products: dr = cr*wr - b*wi, di = a*wi + b*wr with
+    (a, b) = (cr, ci), or (ci, 0) at lane 0."""
     p = ring_re.shape[0]
-    idx = jnp.mod(pos - jnp.arange(p, dtype=jnp.int32), p)
-    rr = jnp.take(ring_re, idx, axis=0)
-    ri = jnp.take(ring_im, idx, axis=0)
-    yr = jnp.sum(coeff_re * rr - coeff_im * ri, axis=0)
-    yi = jnp.sum(coeff_re * ri + coeff_im * rr, axis=0)
-    return yr, yi
+    first = jnp.arange(ring_re.shape[-1]) == 0
+    acc_r = acc_i = None
+    for q in range(p):
+        s = jnp.mod(pos - q, p)
+        wr = jax.lax.dynamic_index_in_dim(ring_re, s, 0, keepdims=False)
+        wi = jax.lax.dynamic_index_in_dim(ring_im, s, 0, keepdims=False)
+        cr, ci = coeff_re[q], coeff_im[q]
+        if lane0:
+            a = jnp.where(first, ci, cr)
+            b = jnp.where(first, jnp.zeros_like(ci), ci)
+        else:
+            a, b = cr, ci
+        dr = cr * wr - b * wi
+        di = a * wi + b * wr
+        acc_r = dr if acc_r is None else acc_r + dr
+        acc_i = di if acc_i is None else acc_i + di
+    return acc_r, acc_i
 
 
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def mac_pallas_packed(ring_pk, coeff_pk, pos, interpret: bool = False):
-    """Fused ring MAC with re/im packed as [P, 2C, Fp] (re rows then im
-    rows): halves the DMA count per grid step vs the 4-plane variant, which
-    measured latency-bound on hardware. Returns (yr, yi) [C, Fp]."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    p, c2, fp = ring_pk.shape
-    c = c2 // 2
-    dt = ring_pk.dtype
-
-    def kernel(pos_ref, r, g, yr, yi):
-        i = pl.program_id(0)
-        rr = r[0, :c, :]
-        ri = r[0, c:, :]
-        cr = g[0, :c, :]
-        ci = g[0, c:, :]
-        a_r = cr * rr - ci * ri
-        a_i = cr * ri + ci * rr
-
-        @pl.when(i == 0)
-        def _():
-            yr[:] = a_r
-            yi[:] = a_i
-
-        @pl.when(i > 0)
-        def _():
-            yr[:] = yr[:] + a_r
-            yi[:] = yi[:] + a_i
-
-    def ring_map(i, pos_ref):
-        return ((pos_ref[0] - i) % p, 0, 0)
-
-    def coeff_map(i, pos_ref):
-        return (i, 0, 0)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(p,),
-        in_specs=[
-            pl.BlockSpec((1, c2, fp), ring_map),
-            pl.BlockSpec((1, c2, fp), coeff_map),
-        ],
-        out_specs=[
-            pl.BlockSpec((c, fp), lambda i, pos_ref: (0, 0)),
-            pl.BlockSpec((c, fp), lambda i, pos_ref: (0, 0)),
-        ],
-    )
-    yr, yi = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=[
-            jax.ShapeDtypeStruct((c, fp), dt),
-            jax.ShapeDtypeStruct((c, fp), dt),
-        ],
-        interpret=interpret,
-    )(jnp.reshape(pos.astype(jnp.int32), (1,)), ring_pk, coeff_pk)
-    return yr, yi
+def mac_reference(ring_re, ring_im, coeff_re, coeff_im, pos):
+    """y = sum_p coeff[p] * ring[(pos - p) mod P] (complex multiply on
+    split planes)."""
+    return _mac_slots(ring_re, ring_im, coeff_re, coeff_im, pos, lane0=False)
 
 
 def chunk_reverse_coeffs(coeff_pk: jax.Array, k: int) -> jax.Array:
-    """Reverse the partition order within each K-chunk (prep for
-    mac_pallas_chunked's contiguous ring slices; see its docstring)."""
+    """Reverse the partition order within each K-chunk (the coefficient
+    layout of the doubled-ring ``step_chunked``; an involution)."""
     p, c2, fp = coeff_pk.shape
     return coeff_pk.reshape(p // k, k, c2, fp)[:, ::-1].reshape(p, c2, fp)
 
 
-@functools.partial(jax.jit, static_argnames=("k", "interpret"))
-def mac_pallas_chunked(ring2_pk, coeff_rk, pos, k: int = 4, interpret: bool = False):
-    """Partition MAC with K partitions per grid step and double-buffered
-    manual DMA of the ring.
-
-    The per-slot kernels measured DMA-latency-bound (~9us per 1.2MB step).
-    This variant cuts grid steps by K and keeps the ring read as one large
-    contiguous DMA per step:
-
-    - ``ring2_pk`` [2P, 2C, Fp] is the ring *doubled* (slot s duplicated at
-      s+P) so the K delayed slots of any chunk are one contiguous slice
-      ``ring2[pos + P - (i+1)K + 1 : .. + K]`` — no modulo wrap.
-    - ``coeff_rk`` is the packed coeffs with each K-chunk's partition order
-      reversed (``chunk_reverse_coeffs``): slice element t pairs with
-      coefficient iK + K-1-t, so reversed storage makes the pairing aligned.
-    - the ring slice start depends on the scalar-prefetched ``pos``, hence
-      manual ``make_async_copy`` from HBM with two VMEM slots, prefetching
-      chunk i+1 while chunk i computes; coeffs ride the normal BlockSpec
-      pipeline.
-
-    Returns (yr, yi) [C, Fp].
-    """
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    p2, c2, fp = ring2_pk.shape
-    p = p2 // 2
-    c = c2 // 2
-    dt = ring2_pk.dtype
-    if p % k:
-        raise ValueError(f"chunk size {k} must divide partition count {p}")
-    nchunks = p // k
-
-    def kernel(pos_ref, ring2_hbm, g, yr, yi, rbuf, sems):
-        i = pl.program_id(0)
-        pos = pos_ref[0]
-
-        def dma(j, slot):
-            start = pos + p - (j + 1) * k + 1
-            return pltpu.make_async_copy(
-                ring2_hbm.at[pl.ds(start, k)], rbuf.at[slot], sems.at[slot]
-            )
-
-        @pl.when(i == 0)
-        def _():
-            dma(0, 0).start()
-
-        @pl.when(i + 1 < nchunks)
-        def _():
-            dma(i + 1, (i + 1) % 2).start()
-
-        dma(i, i % 2).wait()
-        r = rbuf[i % 2]  # [K, 2C, Fp]
-        rr = r[:, :c, :]
-        ri = r[:, c:, :]
-        cr = g[:, :c, :]
-        ci = g[:, c:, :]
-        a_r = jnp.sum(cr * rr - ci * ri, axis=0)
-        a_i = jnp.sum(cr * ri + ci * rr, axis=0)
-
-        @pl.when(i == 0)
-        def _():
-            yr[:] = a_r
-            yi[:] = a_i
-
-        @pl.when(i > 0)
-        def _():
-            yr[:] = yr[:] + a_r
-            yi[:] = yi[:] + a_i
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(nchunks,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pl.ANY),  # ring2 stays in HBM
-            pl.BlockSpec((k, c2, fp), lambda i, pos_ref: (i, 0, 0)),
-        ],
-        out_specs=[
-            pl.BlockSpec((c, fp), lambda i, pos_ref: (0, 0)),
-            pl.BlockSpec((c, fp), lambda i, pos_ref: (0, 0)),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((2, k, c2, fp), dt),
-            pltpu.SemaphoreType.DMA((2,)),
-        ],
-    )
-    yr, yi = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=[
-            jax.ShapeDtypeStruct((c, fp), dt),
-            jax.ShapeDtypeStruct((c, fp), dt),
-        ],
-        interpret=interpret,
-    )(jnp.reshape(pos.astype(jnp.int32), (1,)), ring2_pk, coeff_rk)
-    return yr, yi
-
-
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def mac_pallas(ring_re, ring_im, coeff_re, coeff_im, pos, interpret: bool = False):
-    """Fused ring MAC as a Pallas kernel. Shapes: ring/coeff [P, C, Fp]
-    (Fp ideally a multiple of 128), pos scalar int32. Returns (yr, yi) [C, Fp].
-    """
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    p, c, fp = ring_re.shape
-    dt = ring_re.dtype
-
-    def kernel(pos_ref, rr, ri, cr, ci, yr, yi):
-        i = pl.program_id(0)
-        a_r = cr[0] * rr[0] - ci[0] * ri[0]
-        a_i = cr[0] * ri[0] + ci[0] * rr[0]
-
-        @pl.when(i == 0)
-        def _():
-            yr[:] = a_r
-            yi[:] = a_i
-
-        @pl.when(i > 0)
-        def _():
-            yr[:] = yr[:] + a_r
-            yi[:] = yi[:] + a_i
-
-    def ring_map(i, pos_ref):
-        return ((pos_ref[0] - i) % p, 0, 0)
-
-    def coeff_map(i, pos_ref):
-        return (i, 0, 0)
-
-    def out_map(i, pos_ref):
-        return (0, 0)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(p,),
-        in_specs=[
-            pl.BlockSpec((1, c, fp), ring_map),
-            pl.BlockSpec((1, c, fp), ring_map),
-            pl.BlockSpec((1, c, fp), coeff_map),
-            pl.BlockSpec((1, c, fp), coeff_map),
-        ],
-        out_specs=[
-            pl.BlockSpec((c, fp), out_map),
-            pl.BlockSpec((c, fp), out_map),
-        ],
-    )
-    yr, yi = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=[
-            jax.ShapeDtypeStruct((c, fp), dt),
-            jax.ShapeDtypeStruct((c, fp), dt),
-        ],
-        interpret=interpret,
-    )(jnp.reshape(pos.astype(jnp.int32), (1,)), ring_re, ring_im, coeff_re, coeff_im)
-    return yr, yi
-
-
 # ---------------------------------------------------------------------------
-# Split-plane streaming step built on the kernel (the bench fast path).
+# Split-plane streaming steps.
 # ---------------------------------------------------------------------------
 
 from typing import NamedTuple  # noqa: E402
@@ -284,7 +88,7 @@ def _round_up(x: int, m: int) -> int:
 
 class SplitState(NamedTuple):
     """Streaming state in split re/im planes with a fixed (pointer-indexed)
-    ring — the TPU performance representation of ConvolverState."""
+    ring — the split-plane representation of ConvolverState."""
 
     ring_re: jax.Array  # [P, C, Fp]
     ring_im: jax.Array
@@ -340,6 +144,15 @@ def init_packed_state(spec: FilterSpec, n_channels: int) -> PackedState:
     )
 
 
+def _mac_packed(ring_pk, coeff_pk, pos):
+    """``mac_reference`` on packed [P, 2C, Fp] planes (re rows then im
+    rows); coefficients may be [P, 2, Fp] (one filter for all channels)."""
+    c = ring_pk.shape[1] // 2
+    cs = coeff_pk.shape[1] // 2
+    return mac_reference(ring_pk[:, :c], ring_pk[:, c:],
+                         coeff_pk[:, :cs], coeff_pk[:, cs:], pos)
+
+
 def pack_coeffs(impulse, spec: FilterSpec, n_channels: int, scale: float = 1.0):
     """split_coeffs stacked to [P, 2C, Fp] (broadcast to n_channels)."""
     cr, ci = split_coeffs(impulse, spec, scale)
@@ -354,11 +167,9 @@ def step_packed(
     state: PackedState,
     coeff_pk: jax.Array,
     block: jax.Array,
-    interpret: bool = False,
 ) -> Tuple[PackedState, jax.Array]:
-    """One streaming block on the packed representation (2-DMA kernel)."""
+    """One streaming block on the packed representation."""
     p, c2, fp = state.ring.shape
-    c = c2 // 2
     n = block.shape[-1]
     f = n + 1
     block = block.astype(state.prev_block.dtype)
@@ -371,7 +182,7 @@ def step_packed(
     pos = jnp.mod(state.blockcounter, p)
     zero = jnp.zeros((), dtype=pos.dtype)
     ring = jax.lax.dynamic_update_slice(state.ring, xpk[None], (pos, zero, zero))
-    yr, yi = mac_pallas_packed(ring, coeff_pk, pos, interpret=interpret)
+    yr, yi = _mac_packed(ring, coeff_pk, pos)
     out = F.irfft_split(yr[..., :f], yi[..., :f], n=2 * n)[..., n:]
     return PackedState(ring, block, state.blockcounter + 1), out
 
@@ -381,17 +192,14 @@ def step_packed_crossfade(
     coeff_old: jax.Array,
     coeff_new: jax.Array,
     block: jax.Array,
-    interpret: bool = False,
 ) -> Tuple[PackedState, jax.Array]:
-    """One block during a filter change on the packed/TPU path: a single
-    ring advance, two fused MACs (old and new coefficient sets), and a
-    linear ramp between the two outputs — ``convolver_crossfade_inplace``
-    (fftw_convolver.cpp:275-321) on the packed representation. Makes live
-    reconfigure glitch-free on the TPU default engine (VERDICT r1 weak #2);
-    the extra MAC costs one block's HBM read of the ring+coeffs, paid only
-    on the reconfigure block itself."""
+    """One block during a filter change on the packed path: a single ring
+    advance, two MACs (old and new coefficient sets), and a linear ramp
+    between the two outputs — ``convolver_crossfade_inplace``
+    (fftw_convolver.cpp:275-321) on the packed representation. The extra
+    MAC costs one more read of the ring+coeffs, paid only on the
+    reconfigure block itself."""
     p, c2, fp = state.ring.shape
-    c = c2 // 2
     n = block.shape[-1]
     f = n + 1
     block = block.astype(state.prev_block.dtype)
@@ -404,8 +212,8 @@ def step_packed_crossfade(
     pos = jnp.mod(state.blockcounter, p)
     zero = jnp.zeros((), dtype=pos.dtype)
     ring = jax.lax.dynamic_update_slice(state.ring, xpk[None], (pos, zero, zero))
-    yr_o, yi_o = mac_pallas_packed(ring, coeff_old, pos, interpret=interpret)
-    yr_n, yi_n = mac_pallas_packed(ring, coeff_new, pos, interpret=interpret)
+    yr_o, yi_o = _mac_packed(ring, coeff_old, pos)
+    yr_n, yi_n = _mac_packed(ring, coeff_new, pos)
     out_old = F.irfft_split(yr_o[..., :f], yi_o[..., :f], n=2 * n)[..., n:]
     out_new = F.irfft_split(yr_n[..., :f], yi_n[..., :f], n=2 * n)[..., n:]
     ramp = jnp.arange(n, dtype=out_old.dtype) / (n - 1)
@@ -414,278 +222,21 @@ def step_packed_crossfade(
 
 
 def mac_reference_hc(ring_re, ring_im, coeff_re, coeff_im, pos):
-    """jnp reference of the halfcomplex MAC: lane 0 carries (DC.re, Ny.re)
-    in the (re, im) planes, so its product is two independent *real*
-    multiplies instead of one complex multiply — exactly the bin-0/bin-n/2
-    special case of the reference's halfcomplex MAC loops
-    (/root/reference/brutefir/fftw_convolver.cpp:1429-1525)."""
-    p = ring_re.shape[0]
-    idx = jnp.mod(pos - jnp.arange(p, dtype=jnp.int32), p)
-    rr = jnp.take(ring_re, idx, axis=0)
-    ri = jnp.take(ring_im, idx, axis=0)
-    p1 = coeff_re * rr
-    p2 = coeff_im * ri
-    a_r = p1 - p2
-    a_i = coeff_re * ri + coeff_im * rr
-    a_r = a_r.at[..., 0].set(p1[..., 0])
-    a_i = a_i.at[..., 0].set(p2[..., 0])
-    return jnp.sum(a_r, axis=0), jnp.sum(a_i, axis=0)
-
-
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def mac_pallas_hc(ring_pk, coeff_pk, pos, interpret: bool = False):
-    """Halfcomplex packed ring MAC: ring/coeff [P, 2C, Hp] (re rows then im
-    rows; lane 0 = (DC.re, Nyquist.re)). With N = 1024 blocks the frequency
-    axis is exactly 1024 lanes — no 1025->1152 tile padding — cutting the
-    MAC's HBM traffic 11.1% vs the full-width split kernels. Lane 0 is
-    fixed up to two real products (see mac_reference_hc). Returns (yr, yi)
-    [C, Hp] halfcomplex planes."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    p, c2, hp = ring_pk.shape
-    c = c2 // 2
-    # SHARED-coefficient form: coeff [P, 2, Hp] (one filter for every
-    # channel — the broadcast chains of the reference plugin, e.g. EQ-only:
-    # prefs_eq renders ONE FIR for all channels). Coefficient HBM traffic
-    # drops by 1/C; the products broadcast across the channel sublanes.
-    cs = coeff_pk.shape[1] // 2
-    dt = ring_pk.dtype
-
-    def kernel(pos_ref, r, g, yr, yi):
-        i = pl.program_id(0)
-        rr = r[0, :c, :]
-        ri = r[0, c:, :]
-        cr = g[0, :cs, :]
-        ci = g[0, cs:, :]
-        p1 = cr * rr
-        p2 = ci * ri
-        dc = jax.lax.broadcasted_iota(jnp.int32, (c, hp), 1) == 0
-        a_r = jnp.where(dc, p1, p1 - p2)
-        a_i = jnp.where(dc, p2, cr * ri + ci * rr)
-
-        @pl.when(i == 0)
-        def _():
-            yr[:] = a_r
-            yi[:] = a_i
-
-        @pl.when(i > 0)
-        def _():
-            yr[:] = yr[:] + a_r
-            yi[:] = yi[:] + a_i
-
-    def ring_map(i, pos_ref):
-        return ((pos_ref[0] - i) % p, 0, 0)
-
-    def coeff_map(i, pos_ref):
-        return (i, 0, 0)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(p,),
-        in_specs=[
-            pl.BlockSpec((1, c2, hp), ring_map),
-            pl.BlockSpec((1, 2 * cs, hp), coeff_map),
-        ],
-        out_specs=[
-            pl.BlockSpec((c, hp), lambda i, pos_ref: (0, 0)),
-            pl.BlockSpec((c, hp), lambda i, pos_ref: (0, 0)),
-        ],
-    )
-    yr, yi = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=[
-            jax.ShapeDtypeStruct((c, hp), dt),
-            jax.ShapeDtypeStruct((c, hp), dt),
-        ],
-        interpret=interpret,
-    )(jnp.reshape(pos.astype(jnp.int32), (1,)), ring_pk, coeff_pk)
-    return yr, yi
-
-
-@functools.partial(jax.jit, static_argnames=("tile", "interpret"))
-def mac_pallas_hc_tiled(ring_pk, coeff_pk, pos, tile: int = 2048,
-                        interpret: bool = False):
-    """``mac_pallas_hc`` with the frequency axis tiled into the grid.
-
-    The untiled kernel keeps one whole [2C, Hp] ring slot + coeff slot (plus
-    double-buffering) resident in VMEM; at the non-uniform engine's tail
-    geometry (Hp = 8192, C = 64 -> 4 MB per slot) that overflows VMEM. Here
-    the grid is (Hp/tile, P) with partitions innermost: each output tile
-    [C, tile] stays resident in VMEM across the partition sweep while ring
-    and coeff stream through in [1, 2C, tile] blocks. Semantics identical to
-    ``mac_pallas_hc`` (lane 0 of freq-tile 0 is the (DC.re, Ny.re) pair of
-    real products). Returns (yr, yi) [C, Hp] halfcomplex planes."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    p, c2, hp = ring_pk.shape
-    c = c2 // 2
-    cs = coeff_pk.shape[1] // 2  # 1 = shared filter (see mac_pallas_hc)
-    # reduced-precision storage (bfloat16 ring/coeff) still accumulates in
-    # f32: the DMA halves, the arithmetic doesn't change
-    dt = (jnp.float32 if ring_pk.dtype in (jnp.bfloat16, jnp.float16)
-          else ring_pk.dtype)
-    if hp % tile:
-        raise ValueError(f"freq tile {tile} must divide Hp {hp}")
-    nf = hp // tile
-
-    def kernel(pos_ref, r, g, yr, yi):
-        f = pl.program_id(0)
-        i = pl.program_id(1)
-        rr = r[0, :c, :].astype(dt)
-        ri = r[0, c:, :].astype(dt)
-        cr = g[0, :cs, :].astype(dt)
-        ci = g[0, cs:, :].astype(dt)
-        p1 = cr * rr
-        p2 = ci * ri
-        dc = jnp.logical_and(
-            f == 0, jax.lax.broadcasted_iota(jnp.int32, (c, tile), 1) == 0
-        )
-        a_r = jnp.where(dc, p1, p1 - p2)
-        a_i = jnp.where(dc, p2, cr * ri + ci * rr)
-
-        @pl.when(i == 0)
-        def _():
-            yr[:] = a_r
-            yi[:] = a_i
-
-        @pl.when(i > 0)
-        def _():
-            yr[:] = yr[:] + a_r
-            yi[:] = yi[:] + a_i
-
-    def ring_map(f, i, pos_ref):
-        return ((pos_ref[0] - i) % p, 0, f)
-
-    def coeff_map(f, i, pos_ref):
-        return (i, 0, f)
-
-    def out_map(f, i, pos_ref):
-        return (0, f)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(nf, p),
-        in_specs=[
-            pl.BlockSpec((1, c2, tile), ring_map),
-            pl.BlockSpec((1, 2 * cs, tile), coeff_map),
-        ],
-        out_specs=[
-            pl.BlockSpec((c, tile), out_map),
-            pl.BlockSpec((c, tile), out_map),
-        ],
-    )
-    yr, yi = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=[
-            jax.ShapeDtypeStruct((c, hp), dt),
-            jax.ShapeDtypeStruct((c, hp), dt),
-        ],
-        interpret=interpret,
-    )(jnp.reshape(pos.astype(jnp.int32), (1,)), ring_pk, coeff_pk)
-    return yr, yi
-
-
-@functools.partial(jax.jit, static_argnames=("band_start", "band_len",
-                                             "interpret"))
-def mac_pallas_hc_band(ring_pk, coeff_pk, pos, band_start: int,
-                       band_len: int, interpret: bool = False):
-    """``mac_pallas_hc_tiled`` restricted to ONE frequency band
-    [band_start, band_start + band_len): all partitions, one slice of the
-    spectrum. The split-tail schedule (core.nonuniform.step_nu_split) runs
-    one band per streaming phase so the tail MAC's HBM traffic spreads
-    evenly across the R-block slack instead of spiking at the fire block;
-    each band of the accumulator is written exactly once (no
-    read-modify-write). The band is addressed via the BlockSpec index map —
-    no XLA-level slice copy of the ring. Lane 0 of band 0 is the
-    (DC.re, Ny.re) pair of real products, as in the parent kernels.
-    Returns (yr, yi) [C, band_len]."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    p, c2, hp = ring_pk.shape
-    c = c2 // 2
-    cs = coeff_pk.shape[1] // 2  # 1 = shared filter
-    if band_start % 128 or band_len % 128:
-        raise ValueError("band must be 128-lane aligned")
-    if band_start + band_len > hp:
-        raise ValueError(f"band [{band_start}, {band_start+band_len}) "
-                         f"outside Hp={hp}")
-    dt = (jnp.float32 if ring_pk.dtype in (jnp.bfloat16, jnp.float16)
-          else ring_pk.dtype)
-    fb = band_start // band_len if band_start % band_len == 0 else None
-
-    def kernel(pos_ref, r, g, yr, yi):
-        i = pl.program_id(0)
-        rr = r[0, :c, :].astype(dt)
-        ri = r[0, c:, :].astype(dt)
-        cr = g[0, :cs, :].astype(dt)
-        ci = g[0, cs:, :].astype(dt)
-        p1 = cr * rr
-        p2 = ci * ri
-        if band_start == 0:
-            dc = jax.lax.broadcasted_iota(jnp.int32, (c, band_len), 1) == 0
-            a_r = jnp.where(dc, p1, p1 - p2)
-            a_i = jnp.where(dc, p2, cr * ri + ci * rr)
-        else:
-            a_r = p1 - p2
-            a_i = cr * ri + ci * rr
-
-        @pl.when(i == 0)
-        def _():
-            yr[:] = a_r
-            yi[:] = a_i
-
-        @pl.when(i > 0)
-        def _():
-            yr[:] = yr[:] + a_r
-            yi[:] = yi[:] + a_i
-
-    # block index = band_start / band_len when aligned; otherwise use a
-    # 128-granular block (band_len must then be a multiple the map hits)
-    if fb is None:
-        raise ValueError("band_start must be a multiple of band_len")
-
-    def ring_map(i, pos_ref):
-        return ((pos_ref[0] - i) % p, 0, fb)
-
-    def coeff_map(i, pos_ref):
-        return (i, 0, fb)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(p,),
-        in_specs=[
-            pl.BlockSpec((1, c2, band_len), ring_map),
-            pl.BlockSpec((1, 2 * cs, band_len), coeff_map),
-        ],
-        out_specs=[
-            pl.BlockSpec((c, band_len), lambda i, pos_ref: (0, 0)),
-            pl.BlockSpec((c, band_len), lambda i, pos_ref: (0, 0)),
-        ],
-    )
-    yr, yi = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=[
-            jax.ShapeDtypeStruct((c, band_len), dt),
-            jax.ShapeDtypeStruct((c, band_len), dt),
-        ],
-        interpret=interpret,
-    )(jnp.reshape(pos.astype(jnp.int32), (1,)), ring_pk, coeff_pk)
-    return yr, yi
+    """The halfcomplex MAC: lane 0 carries (DC.re, Ny.re) in the (re, im)
+    planes, so its product is two independent *real* multiplies instead of
+    one complex multiply — exactly the bin-0/bin-n/2 special case of the
+    reference's halfcomplex MAC loops
+    (brutefir/fftw_convolver.cpp:1429-1525)."""
+    return _mac_slots(ring_re, ring_im, coeff_re, coeff_im, pos, lane0=True)
 
 
 # ---------------------------------------------------------------------------
-# Block-scaled integer plane storage (VERDICT r4 next #1 — the measured
+# Block-scaled integer plane storage (the measured
 # storage-precision frontier, benchmarks/storage_snr.py):
 #
 #   int24 (int16 hi + int8 lo + per-row f32 scale, 3 B/elem): ~134 dB MAC
-#         SNR — the cheapest scheme that keeps >=125 dB; 25% less MAC HBM
-#         traffic than f32.
+#         SNR — the cheapest scheme that keeps >=125 dB; 25% fewer MAC
+#         bytes than f32.
 #   int16 (int16 + per-row scale, 2 B/elem): ~86 dB — the halved-traffic
 #         point; >=125 dB at 2 B/elem is not physically reachable (the
 #         spectra's in-row dynamic range eats ~10 dB of any 16-bit format,
@@ -695,9 +246,9 @@ def mac_pallas_hc_band(ring_pk, coeff_pk, pos, band_start: int,
 # q = round(a/s) with s = rowmax/qmax; int24 splits q into an arithmetic
 # high int16 (q >> 8) and an unsigned low byte (q & 255), so
 # hi*256 + lo reconstructs exactly, and |q| <= 2^23-1 converts to f32
-# exactly. Scales ride along pre-broadcast to [ , 128] lanes (tiny) so the
-# kernel reads them as ordinary lane-aligned blocks. Accumulation stays
-# f32 — only the stored bytes shrink (same philosophy as the bf16 tier).
+# exactly. Scales ride along pre-broadcast to [ , 128] (tiny; the stored
+# layout of the int tiers). The MAC decodes in f32 and accumulates in f32 —
+# only the stored bytes shrink (same philosophy as the bf16 tier).
 # ---------------------------------------------------------------------------
 
 from typing import Optional  # noqa: E402
@@ -706,7 +257,7 @@ from typing import Optional  # noqa: E402
 class IntPlanes(NamedTuple):
     """Block-scaled integer spectra: ``hi`` int16 [..., H], ``lo`` uint8
     [..., H] (None for the int16 tier), ``scale`` f32 [..., 128]
-    (per-row value broadcast along 128 lanes for aligned kernel loads)."""
+    (the per-row value, stored broadcast along 128 lanes)."""
 
     hi: jax.Array
     lo: Optional[jax.Array]
@@ -735,7 +286,7 @@ def quantize_planes(planes: jax.Array, bits: int) -> IntPlanes:
 
 
 def dequantize_planes(ip: IntPlanes) -> jax.Array:
-    """Inverse of ``quantize_planes`` (tests / jnp reference path)."""
+    """Inverse of ``quantize_planes``."""
     if ip.lo is None:
         q = ip.hi.astype(jnp.float32)
     else:
@@ -745,8 +296,8 @@ def dequantize_planes(ip: IntPlanes) -> jax.Array:
 
 
 def mac_reference_hc_int(ring: IntPlanes, coeff: IntPlanes, pos):
-    """jnp reference of the int-stored halfcomplex MAC (CPU path/tests):
-    decode then the standard reference MAC, f32 accumulation."""
+    """Halfcomplex MAC on int-stored planes: decode to f32, then
+    ``mac_reference_hc`` (f32 accumulation)."""
     rp = dequantize_planes(ring)
     cp = dequantize_planes(coeff)
     c = rp.shape[1] // 2
@@ -754,233 +305,9 @@ def mac_reference_hc_int(ring: IntPlanes, coeff: IntPlanes, pos):
     return mac_reference_hc(rp[:, :c], rp[:, c:], cp[:, :cs], cp[:, cs:], pos)
 
 
-@functools.partial(jax.jit, static_argnames=("tile", "interpret"))
-def mac_pallas_hc_tiled_int(ring: IntPlanes, coeff: IntPlanes, pos,
-                            tile: int = 2048, interpret: bool = False):
-    """``mac_pallas_hc_tiled`` on block-scaled integer planes: the ring and
-    coefficient spectra stream from HBM as int16(+int8) and decode on the
-    VPU inside the kernel (shift/or, int->f32 convert, one scale multiply
-    per operand) — 25% (int24) or 50% (int16) less MAC HBM traffic, f32
-    accumulation unchanged. Supports the shared-coefficient form (coeff
-    second dim 2 instead of 2C). Returns (yr, yi) [C, Hp] f32."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    p, c2, hp = ring.hi.shape
-    c = c2 // 2
-    cs = coeff.hi.shape[1] // 2
-    i24_r = ring.lo is not None
-    i24_c = coeff.lo is not None
-    if hp % tile:
-        raise ValueError(f"freq tile {tile} must divide Hp {hp}")
-    nf = hp // tile
-
-    def kernel(pos_ref, *refs):
-        # refs order: ring hi[, lo], ring scale, coeff hi[, lo],
-        #             coeff scale, yr, yi
-        it = iter(refs)
-        r_hi = next(it)
-        r_lo = next(it) if i24_r else None
-        r_s = next(it)
-        g_hi = next(it)
-        g_lo = next(it) if i24_c else None
-        g_s = next(it)
-        yr, yi = next(it), next(it)
-        f = pl.program_id(0)
-        i = pl.program_id(1)
-
-        def dec(hi_ref, lo_ref, s_ref, rows):
-            q = hi_ref[0].astype(jnp.int32) * 256 if lo_ref is not None \
-                else hi_ref[0].astype(jnp.int32)
-            if lo_ref is not None:
-                q = q + lo_ref[0].astype(jnp.int32)
-            return q.astype(jnp.float32) * s_ref[0][:, :1]
-
-        r = dec(r_hi, r_lo, r_s, c2)
-        g = dec(g_hi, g_lo, g_s, 2 * cs)
-        rr, ri = r[:c, :], r[c:, :]
-        cr, ci = g[:cs, :], g[cs:, :]
-        p1 = cr * rr
-        p2 = ci * ri
-        dc = jnp.logical_and(
-            f == 0, jax.lax.broadcasted_iota(jnp.int32, (c, tile), 1) == 0)
-        a_r = jnp.where(dc, p1, p1 - p2)
-        a_i = jnp.where(dc, p2, cr * ri + ci * rr)
-
-        @pl.when(i == 0)
-        def _():
-            yr[:] = a_r
-            yi[:] = a_i
-
-        @pl.when(i > 0)
-        def _():
-            yr[:] = yr[:] + a_r
-            yi[:] = yi[:] + a_i
-
-    def ring_map(f, i, pos_ref):
-        return ((pos_ref[0] - i) % p, 0, f)
-
-    def coeff_map(f, i, pos_ref):
-        return (i, 0, f)
-
-    def s_ring_map(f, i, pos_ref):
-        return ((pos_ref[0] - i) % p, 0, 0)
-
-    def s_coeff_map(f, i, pos_ref):
-        return (i, 0, 0)
-
-    in_specs = [pl.BlockSpec((1, c2, tile), ring_map)]
-    args = [ring.hi]
-    if i24_r:
-        in_specs.append(pl.BlockSpec((1, c2, tile), ring_map))
-        args.append(ring.lo)
-    in_specs.append(pl.BlockSpec((1, c2, 128), s_ring_map))
-    args.append(ring.scale)
-    in_specs.append(pl.BlockSpec((1, 2 * cs, tile), coeff_map))
-    args.append(coeff.hi)
-    if i24_c:
-        in_specs.append(pl.BlockSpec((1, 2 * cs, tile), coeff_map))
-        args.append(coeff.lo)
-    in_specs.append(pl.BlockSpec((1, 2 * cs, 128), s_coeff_map))
-    args.append(coeff.scale)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(nf, p),
-        in_specs=in_specs,
-        out_specs=[
-            pl.BlockSpec((c, tile), lambda f, i, pos_ref: (0, f)),
-            pl.BlockSpec((c, tile), lambda f, i, pos_ref: (0, f)),
-        ],
-    )
-    yr, yi = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=[
-            jax.ShapeDtypeStruct((c, hp), jnp.float32),
-            jax.ShapeDtypeStruct((c, hp), jnp.float32),
-        ],
-        interpret=interpret,
-    )(jnp.reshape(pos.astype(jnp.int32), (1,)), *args)
-    return yr, yi
-
-
-@functools.partial(jax.jit, static_argnames=("band_start", "band_len",
-                                             "interpret"))
-def mac_pallas_hc_band_int(ring: IntPlanes, coeff: IntPlanes, pos,
-                           band_start: int, band_len: int,
-                           interpret: bool = False):
-    """``mac_pallas_hc_band`` on block-scaled integer planes: one frequency
-    band, all partitions, int16(+int8) streamed from HBM and decoded on the
-    VPU — the split-tail schedule composed with the int24/int16 storage
-    tiers. Returns (yr, yi) [C, band_len] f32."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    p, c2, hp = ring.hi.shape
-    c = c2 // 2
-    cs = coeff.hi.shape[1] // 2
-    i24_r = ring.lo is not None
-    i24_c = coeff.lo is not None
-    if band_start % 128 or band_len % 128:
-        raise ValueError("band must be 128-lane aligned")
-    if band_start % band_len:
-        raise ValueError("band_start must be a multiple of band_len")
-    fb = band_start // band_len
-
-    def kernel(pos_ref, *refs):
-        it = iter(refs)
-        r_hi = next(it)
-        r_lo = next(it) if i24_r else None
-        r_s = next(it)
-        g_hi = next(it)
-        g_lo = next(it) if i24_c else None
-        g_s = next(it)
-        yr, yi = next(it), next(it)
-        i = pl.program_id(0)
-
-        def dec(hi_ref, lo_ref, s_ref):
-            q = hi_ref[0].astype(jnp.int32) * 256 if lo_ref is not None \
-                else hi_ref[0].astype(jnp.int32)
-            if lo_ref is not None:
-                q = q + lo_ref[0].astype(jnp.int32)
-            return q.astype(jnp.float32) * s_ref[0][:, :1]
-
-        r = dec(r_hi, r_lo, r_s)
-        g = dec(g_hi, g_lo, g_s)
-        rr, ri = r[:c, :], r[c:, :]
-        cr, ci = g[:cs, :], g[cs:, :]
-        p1 = cr * rr
-        p2 = ci * ri
-        if band_start == 0:
-            dc = jax.lax.broadcasted_iota(jnp.int32, (c, band_len), 1) == 0
-            a_r = jnp.where(dc, p1, p1 - p2)
-            a_i = jnp.where(dc, p2, cr * ri + ci * rr)
-        else:
-            a_r = p1 - p2
-            a_i = cr * ri + ci * rr
-
-        @pl.when(i == 0)
-        def _():
-            yr[:] = a_r
-            yi[:] = a_i
-
-        @pl.when(i > 0)
-        def _():
-            yr[:] = yr[:] + a_r
-            yi[:] = yi[:] + a_i
-
-    def ring_map(i, pos_ref):
-        return ((pos_ref[0] - i) % p, 0, fb)
-
-    def coeff_map(i, pos_ref):
-        return (i, 0, fb)
-
-    def s_ring_map(i, pos_ref):
-        return ((pos_ref[0] - i) % p, 0, 0)
-
-    def s_coeff_map(i, pos_ref):
-        return (i, 0, 0)
-
-    in_specs = [pl.BlockSpec((1, c2, band_len), ring_map)]
-    args = [ring.hi]
-    if i24_r:
-        in_specs.append(pl.BlockSpec((1, c2, band_len), ring_map))
-        args.append(ring.lo)
-    in_specs.append(pl.BlockSpec((1, c2, 128), s_ring_map))
-    args.append(ring.scale)
-    in_specs.append(pl.BlockSpec((1, 2 * cs, band_len), coeff_map))
-    args.append(coeff.hi)
-    if i24_c:
-        in_specs.append(pl.BlockSpec((1, 2 * cs, band_len), coeff_map))
-        args.append(coeff.lo)
-    in_specs.append(pl.BlockSpec((1, 2 * cs, 128), s_coeff_map))
-    args.append(coeff.scale)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(p,),
-        in_specs=in_specs,
-        out_specs=[
-            pl.BlockSpec((c, band_len), lambda i, pos_ref: (0, 0)),
-            pl.BlockSpec((c, band_len), lambda i, pos_ref: (0, 0)),
-        ],
-    )
-    yr, yi = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=[
-            jax.ShapeDtypeStruct((c, band_len), jnp.float32),
-            jax.ShapeDtypeStruct((c, band_len), jnp.float32),
-        ],
-        interpret=interpret,
-    )(jnp.reshape(pos.astype(jnp.int32), (1,)), *args)
-    return yr, yi
-
-
 def mac_reference_hc_band_int(ring: IntPlanes, coeff: IntPlanes, pos,
                               band_start: int, band_len: int):
-    """jnp reference of ``mac_pallas_hc_band_int``."""
+    """``mac_reference_hc_band`` on int-stored planes (f32 decode)."""
     rp = dequantize_planes(ring)
     cp = dequantize_planes(coeff)
     return mac_reference_hc_band(rp, cp, pos, band_start, band_len)
@@ -988,7 +315,10 @@ def mac_reference_hc_band_int(ring: IntPlanes, coeff: IntPlanes, pos,
 
 def mac_reference_hc_band(ring_pk, coeff_pk, pos, band_start: int,
                           band_len: int):
-    """jnp reference of ``mac_pallas_hc_band`` (CPU path / tests)."""
+    """Halfcomplex MAC restricted to the frequency band
+    [band_start, band_start + band_len) — every partition, one slice of the
+    spectrum (the split-tail schedule's per-phase share). The lane-0
+    fixup applies only to the band that holds lane 0."""
     p, c2, hp = ring_pk.shape
     c = c2 // 2
     cs = coeff_pk.shape[1] // 2
@@ -997,205 +327,23 @@ def mac_reference_hc_band(ring_pk, coeff_pk, pos, band_start: int,
     if ring.dtype in (jnp.bfloat16, jnp.float16):
         ring = ring.astype(jnp.float32)
         coeff = coeff.astype(jnp.float32)
-    idx = jnp.mod(pos - jnp.arange(p, dtype=jnp.int32), p)
-    rr = jnp.take(ring[:, :c], idx, axis=0)
-    ri = jnp.take(ring[:, c:], idx, axis=0)
-    cr = coeff[:, :cs]
-    ci = coeff[:, cs:]
-    p1 = cr * rr
-    p2 = ci * ri
-    a_r = p1 - p2
-    a_i = cr * ri + ci * rr
-    if band_start == 0:
-        a_r = a_r.at[..., 0].set(p1[..., 0])
-        a_i = a_i.at[..., 0].set(p2[..., 0])
-    return jnp.sum(a_r, axis=0), jnp.sum(a_i, axis=0)
+    return _mac_slots(ring[:, :c], ring[:, c:], coeff[:, :cs], coeff[:, cs:],
+                      pos, lane0=band_start == 0)
 
 
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def mac_tail_pallas_hc(ring_pk, coeff_pk, wr, wi, pos, interpret: bool = False):
-    """Fused halfcomplex ring MAC + overlap-save tail render in ONE kernel.
-
-    Same MAC as ``mac_pallas_hc``; the final grid step multiplies the VMEM
-    accumulator against the resident half-DFT tail basis (``wr``/``wi`` from
-    ops.fft._hc_tail_weights, transposed to [H, H]) on the MXU and writes
-    the time-domain tail [C, H] directly — the spectrum accumulator never
-    round-trips HBM and the inverse transform overlaps the MAC's DMA wall
-    (the MXU is idle during the BW-bound MAC steps; the basis is DMA'd once
-    at step 0 alongside them). This is hot-loop steps 3-5 of the reference
-    (convolve/convolve_add + freq2time, brutefir.cpp:279-333) as one
-    dispatch. Returns out [C, H] real.
-    """
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    p, c2, hp = ring_pk.shape
-    c = c2 // 2
-    dt = ring_pk.dtype
-
-    def kernel(pos_ref, r, g, wr_ref, wi_ref, out, accr, acci):
-        i = pl.program_id(0)
-        rr = r[0, :c, :]
-        ri = r[0, c:, :]
-        cr = g[0, :c, :]
-        ci = g[0, c:, :]
-        p1 = cr * rr
-        p2 = ci * ri
-        dc = jax.lax.broadcasted_iota(jnp.int32, (c, hp), 1) == 0
-        a_r = jnp.where(dc, p1, p1 - p2)
-        a_i = jnp.where(dc, p2, cr * ri + ci * rr)
-
-        @pl.when(i == 0)
-        def _():
-            accr[:] = a_r
-            acci[:] = a_i
-
-        @pl.when(i > 0)
-        def _():
-            accr[:] = accr[:] + a_r
-            acci[:] = acci[:] + a_i
-
-        @pl.when(i == p - 1)
-        def _():
-            out[:] = jax.lax.dot_general(
-                accr[:], wr_ref[:], (((1,), (0,)), ((), ())),
-                preferred_element_type=dt,
-                precision=jax.lax.Precision.HIGHEST,
-            ) + jax.lax.dot_general(
-                acci[:], wi_ref[:], (((1,), (0,)), ((), ())),
-                preferred_element_type=dt,
-                precision=jax.lax.Precision.HIGHEST,
-            )
-
-    def ring_map(i, pos_ref):
-        return ((pos_ref[0] - i) % p, 0, 0)
-
-    def coeff_map(i, pos_ref):
-        return (i, 0, 0)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(p,),
-        in_specs=[
-            pl.BlockSpec((1, c2, hp), ring_map),
-            pl.BlockSpec((1, c2, hp), coeff_map),
-            pl.BlockSpec((hp, hp), lambda i, pos_ref: (0, 0)),
-            pl.BlockSpec((hp, hp), lambda i, pos_ref: (0, 0)),
-        ],
-        out_specs=pl.BlockSpec((c, hp), lambda i, pos_ref: (0, 0)),
-        scratch_shapes=[
-            pltpu.VMEM((c, hp), dt),
-            pltpu.VMEM((c, hp), dt),
-        ],
-    )
-    out = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((c, hp), dt),
-        interpret=interpret,
-    )(jnp.reshape(pos.astype(jnp.int32), (1,)), ring_pk, coeff_pk, wr, wi)
-    return out
-
-
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def mac_pallas_hc_insert(ring_pk, coeff_pk, xpk, pos, interpret: bool = False):
-    """Halfcomplex ring MAC with the ring-slot insert fused INTO the kernel.
-
-    The XLA-level formulation (dynamic_update_slice -> pallas MAC) measured
-    ~94 us for the MAC alone but ~230 us for the full step: a
-    dynamic-index update whose result feeds a custom call makes XLA copy
-    the 64 MB ring every block. Here the new block spectrum ``xpk``
-    [2C, Hp] rides into the kernel as a VMEM-resident input; grid step 0
-    multiplies against it directly (the HBM slot still holds stale data),
-    every step writes it to the aliased ring output block at ``pos``
-    (constant output map -> Mosaic flushes the 0.5 MB block once), and the
-    ring buffer is input/output aliased — no XLA-side ring op at all.
-
-    Returns (yr, yi, new_ring)."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    p, c2, hp = ring_pk.shape
-    c = c2 // 2
-    dt = ring_pk.dtype
-
-    def kernel(pos_ref, x, r, g, yr, yi, ring_out):
-        i = pl.program_id(0)
-        first = i == 0
-        # slot pos's HBM content is stale on step 0: the new spectrum is x
-        rr = jnp.where(first, x[:c, :], r[0, :c, :])
-        ri = jnp.where(first, x[c:, :], r[0, c:, :])
-        cr = g[0, :c, :]
-        ci = g[0, c:, :]
-        p1 = cr * rr
-        p2 = ci * ri
-        dc = jax.lax.broadcasted_iota(jnp.int32, (c, hp), 1) == 0
-        a_r = jnp.where(dc, p1, p1 - p2)
-        a_i = jnp.where(dc, p2, cr * ri + ci * rr)
-
-        @pl.when(first)
-        def _():
-            yr[:] = a_r
-            yi[:] = a_i
-
-        @pl.when(i > 0)
-        def _():
-            yr[:] = yr[:] + a_r
-            yi[:] = yi[:] + a_i
-
-        ring_out[0] = x[:]  # constant map: flushed to slot pos once
-
-    def ring_map(i, pos_ref):
-        return ((pos_ref[0] - i) % p, 0, 0)
-
-    def coeff_map(i, pos_ref):
-        return (i, 0, 0)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(p,),
-        in_specs=[
-            pl.BlockSpec((c2, hp), lambda i, pos_ref: (0, 0)),  # xpk resident
-            pl.BlockSpec((1, c2, hp), ring_map),
-            pl.BlockSpec((1, c2, hp), coeff_map),
-        ],
-        out_specs=[
-            pl.BlockSpec((c, hp), lambda i, pos_ref: (0, 0)),
-            pl.BlockSpec((c, hp), lambda i, pos_ref: (0, 0)),
-            pl.BlockSpec((1, c2, hp), lambda i, pos_ref: (pos_ref[0], 0, 0)),
-        ],
-    )
-    yr, yi, ring_new = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=[
-            jax.ShapeDtypeStruct((c, hp), dt),
-            jax.ShapeDtypeStruct((c, hp), dt),
-            jax.ShapeDtypeStruct((p, c2, hp), dt),
-        ],
-        # operand indices include the scalar-prefetch arg: 1=ring -> out 2
-        input_output_aliases={2: 2},
-        interpret=interpret,
-    )(jnp.reshape(pos.astype(jnp.int32), (1,)), xpk, ring_pk, coeff_pk)
-    return yr, yi, ring_new
-
-
-def step_hc2(
-    state: HcState,
-    coeff_pk: jax.Array,
-    block: jax.Array,
-    interpret: bool = False,
-) -> Tuple[HcState, jax.Array]:
-    """step_hc with the in-kernel ring insert (mac_pallas_hc_insert):
-    identical outputs, no XLA-side dynamic ring update."""
-    p, c2, hp = state.ring.shape
-    n = block.shape[-1]
-    block, xpk = _hc_frame_spectrum(state, block, hp)
-    pos = jnp.mod(state.blockcounter, p)
-    yr, yi, ring = mac_pallas_hc_insert(state.ring, coeff_pk, xpk, pos,
-                                        interpret=interpret)
-    out = F.irfft_hc_tail(yr, yi, n=2 * n)
-    return HcState(ring, block, state.blockcounter + 1), out
+def mac_hc(ring_pk, coeff_pk, pos):
+    """Halfcomplex MAC on packed [P, 2C, Hp] planes in any stored form:
+    float32/bfloat16 (bf16 accumulates in f32) or ``IntPlanes`` (decoded
+    to f32). Coefficients may be shared ([P, 2, Hp])."""
+    if isinstance(ring_pk, IntPlanes):
+        return mac_reference_hc_int(ring_pk, coeff_pk, pos)
+    if ring_pk.dtype == jnp.bfloat16:
+        ring_pk = ring_pk.astype(jnp.float32)
+        coeff_pk = coeff_pk.astype(jnp.float32)
+    c = ring_pk.shape[1] // 2
+    cs = coeff_pk.shape[1] // 2  # 1 = shared filter
+    return mac_reference_hc(ring_pk[:, :c], ring_pk[:, c:],
+                            coeff_pk[:, :cs], coeff_pk[:, cs:], pos)
 
 
 class HcState(NamedTuple):
@@ -1224,21 +372,21 @@ def hc_coeffs(impulse, spec: FilterSpec, n_channels: int, scale: float = 1.0,
     [P, 2C, Hp] (broadcast to n_channels).
 
     ``shared``: keep ONE filter's planes ([P, 2, Hp]) instead of
-    broadcasting — the MAC kernels broadcast across channel sublanes
-    in-register, cutting coefficient HBM traffic by 1/C for chains whose
+    broadcasting — the MACs broadcast them across channels, cutting
+    coefficient memory traffic by 1/C for chains whose
     channels share the filter (the reference plugin's EQ-only chains render
     one FIR for all channels, prefs_eq.cpp). Requires a 1-channel (or
     all-rows-identical) impulse.
 
     ``precise``: compute the partition FFTs on the host in float64 (numpy)
     and round once to the engine dtype. Coefficients are built once per
-    configuration, and the measured f32 error budget (CLAUDE.md) shows
+    configuration, and the measured f32 error budget shows
     f32-computed coefficient spectra cost ~9 dB of streaming SNR even when
     the stored planes are f32 — this recovers that at build time only. The
     reference computes its coefficient spectra at its engine precision
     (REALSIZE=8 on the plugin path, convolver_coeffs2cbuf,
     fftw_convolver.cpp:474-537), so precise=True is the parity behavior
-    for dtype float64 requests on f32-only backends."""
+    for dtype float64 requests served in float32."""
     n, p = spec.block_length, spec.n_partitions
     hp = _round_up(spec.n_fft // 2, 128)
     if shared:
@@ -1305,66 +453,19 @@ def step_hc(
     state: HcState,
     coeff_pk: jax.Array,
     block: jax.Array,
-    interpret: bool = False,
-    use_pallas: bool = True,
-    tail_direct: bool = True,
 ) -> Tuple[HcState, jax.Array]:
     """One streaming block on the halfcomplex representation; outputs match
-    ``step_split`` to f32 rounding with 11% less MAC HBM traffic.
-
-    ``tail_direct`` renders the overlap-save tail with the single-matmul
-    half-DFT basis (ops.fft.irfft_hc_tail) instead of the four-step inverse
-    + slice — one full-width MXU contraction in place of a chain of small
-    stages."""
+    ``step_split`` to f32 rounding with 11% fewer MAC bytes (1024 lanes
+    instead of 1025 at N = 1024)."""
     p, c2, hp = state.ring.shape
-    c = c2 // 2
     n = block.shape[-1]
     block, xpk = _hc_frame_spectrum(state, block, hp)
     pos = jnp.mod(state.blockcounter, p)
     zero = jnp.zeros((), dtype=pos.dtype)
     ring = jax.lax.dynamic_update_slice(state.ring, xpk[None], (pos, zero, zero))
-    if use_pallas:
-        yr, yi = mac_pallas_hc(ring, coeff_pk, pos, interpret=interpret)
-    else:
-        cs = coeff_pk.shape[1] // 2  # 1 = shared filter
-        yr, yi = mac_reference_hc(ring[:, :c], ring[:, c:],
-                                  coeff_pk[:, :cs], coeff_pk[:, cs:], pos)
-    if tail_direct:
-        out = F.irfft_hc_tail(yr, yi, n=2 * n)
-    else:
-        out = F.irfft_split_hc(yr, yi, n=2 * n)[..., n:]
+    yr, yi = mac_hc(ring, coeff_pk, pos)
+    out = F.irfft_hc_tail(yr, yi, n=2 * n)
     return HcState(ring, block, state.blockcounter + 1), out
-
-
-def _tail_basis(n: int, hp: int, dtype) -> Tuple[jax.Array, jax.Array]:
-    """Half-DFT tail basis padded to the lane-rounded [hp, hp]."""
-    wr, wi = F._hc_tail_weights(2 * n, jnp.dtype(dtype).name)
-    h = wr.shape[0]
-    if hp != h:
-        wr = np.pad(wr, ((0, hp - h), (0, hp - h)))
-        wi = np.pad(wi, ((0, hp - h), (0, hp - h)))
-    return jnp.asarray(wr), jnp.asarray(wi)
-
-
-def step_hc_fused(
-    state: HcState,
-    coeff_pk: jax.Array,
-    block: jax.Array,
-    interpret: bool = False,
-) -> Tuple[HcState, jax.Array]:
-    """One streaming block with the fused MAC+tail kernel
-    (``mac_tail_pallas_hc``): the partition MAC and the inverse-transform
-    tail run in one Pallas dispatch; only the forward transform and the
-    ring-slot insert remain XLA-side. Outputs match ``step_hc``."""
-    p, c2, hp = state.ring.shape
-    n = block.shape[-1]
-    block, xpk = _hc_frame_spectrum(state, block, hp)
-    pos = jnp.mod(state.blockcounter, p)
-    zero = jnp.zeros((), dtype=pos.dtype)
-    ring = jax.lax.dynamic_update_slice(state.ring, xpk[None], (pos, zero, zero))
-    wr, wi = _tail_basis(n, hp, state.ring.dtype)
-    out = mac_tail_pallas_hc(ring, coeff_pk, wr, wi, pos, interpret=interpret)
-    return HcState(ring, block, state.blockcounter + 1), out[..., :n]
 
 
 def step_hc_crossfade(
@@ -1372,7 +473,6 @@ def step_hc_crossfade(
     coeff_old: jax.Array,
     coeff_new: jax.Array,
     block: jax.Array,
-    interpret: bool = False,
 ) -> Tuple[HcState, jax.Array]:
     """Glitch-free filter-change block on the halfcomplex path (see
     step_packed_crossfade; same two-MAC + linear-ramp law,
@@ -1383,8 +483,8 @@ def step_hc_crossfade(
     pos = jnp.mod(state.blockcounter, p)
     zero = jnp.zeros((), dtype=pos.dtype)
     ring = jax.lax.dynamic_update_slice(state.ring, xpk[None], (pos, zero, zero))
-    yr_o, yi_o = mac_pallas_hc(ring, coeff_old, pos, interpret=interpret)
-    yr_n, yi_n = mac_pallas_hc(ring, coeff_new, pos, interpret=interpret)
+    yr_o, yi_o = mac_hc(ring, coeff_old, pos)
+    yr_n, yi_n = mac_hc(ring, coeff_new, pos)
     out_old = F.irfft_hc_tail(yr_o, yi_o, n=2 * n)
     out_new = F.irfft_hc_tail(yr_n, yi_n, n=2 * n)
     ramp = jnp.arange(n, dtype=out_old.dtype) / (n - 1)
@@ -1394,7 +494,7 @@ def step_hc_crossfade(
 
 class DoubledState(NamedTuple):
     """Packed state with the ring doubled ([2P, 2C, Fp], slot s mirrored at
-    s+P) for the chunked-DMA kernel."""
+    s+P), so the K delayed slots of any K-chunk are one contiguous slice."""
 
     ring2: jax.Array
     prev_block: jax.Array
@@ -1416,14 +516,12 @@ def step_chunked(
     coeff_rk: jax.Array,
     block: jax.Array,
     k: int = 4,
-    interpret: bool = False,
 ) -> Tuple[DoubledState, jax.Array]:
     """Streaming block step on the doubled-ring/chunk-reversed-coeff
     representation (coeffs from ``chunk_reverse_coeffs(pack_coeffs(...), k)``).
     Outputs match ``step_split`` to fp rounding."""
     p2, c2, fp = state.ring2.shape
     p = p2 // 2
-    c = c2 // 2
     n = block.shape[-1]
     f = n + 1
     block = block.astype(state.prev_block.dtype)
@@ -1437,7 +535,9 @@ def step_chunked(
     zero = jnp.zeros((), dtype=pos.dtype)
     ring2 = jax.lax.dynamic_update_slice(state.ring2, xpk, (pos, zero, zero))
     ring2 = jax.lax.dynamic_update_slice(ring2, xpk, (pos + p, zero, zero))
-    yr, yi = mac_pallas_chunked(ring2, coeff_rk, pos, k=k, interpret=interpret)
+    # the first P slots are the plain ring; undoing the chunk reversal
+    # gives the plain coefficient order
+    yr, yi = _mac_packed(ring2[:p], chunk_reverse_coeffs(coeff_rk, k), pos)
     out = F.irfft_split(yr[..., :f], yi[..., :f], n=2 * n)[..., n:]
     return DoubledState(ring2, block, state.blockcounter + 1), out
 
@@ -1447,8 +547,6 @@ def step_split(
     coeff_re: jax.Array,
     coeff_im: jax.Array,
     block: jax.Array,
-    use_pallas: bool = True,
-    interpret: bool = False,
 ) -> Tuple[SplitState, jax.Array]:
     """One streaming block in split representation; outputs bit-match
     ``core.convolver.step`` up to fp rounding."""
@@ -1461,21 +559,12 @@ def step_split(
     xr = jnp.pad(xr, ((0, 0), (0, fp - f)))
     xi = jnp.pad(xi, ((0, 0), (0, fp - f)))
 
-    # pallas block reads don't broadcast: materialize shared (C=1) coeffs
-    if coeff_re.shape[1] != c:
-        coeff_re = jnp.broadcast_to(coeff_re, (p, c, fp))
-        coeff_im = jnp.broadcast_to(coeff_im, (p, c, fp))
-
     pos = jnp.mod(state.blockcounter, p)
     zero = jnp.zeros((), dtype=pos.dtype)
     ring_re = jax.lax.dynamic_update_slice(state.ring_re, xr[None], (pos, zero, zero))
     ring_im = jax.lax.dynamic_update_slice(state.ring_im, xi[None], (pos, zero, zero))
 
-    if use_pallas:
-        yr, yi = mac_pallas(ring_re, ring_im, coeff_re, coeff_im, pos,
-                            interpret=interpret)
-    else:
-        yr, yi = mac_reference(ring_re, ring_im, coeff_re, coeff_im, pos)
+    yr, yi = mac_reference(ring_re, ring_im, coeff_re, coeff_im, pos)
 
     out = F.irfft_split(yr[..., :f], yi[..., :f], n=2 * n)[..., n:]
     return (

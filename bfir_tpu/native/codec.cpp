@@ -1,6 +1,6 @@
 // Native host-side PCM codec + stream reblocker.
 //
-// TPU-native counterpart of the reference's native sample-format layer
+// Native counterpart of the reference's native sample-format layer
 // (brutefir/raw2real.cpp, brutefir/real2raw.cpp, brutefir/swap.h,
 // brutefir/numunion.h): the per-sample interleaved-PCM <-> planar-float
 // conversion that sits on the host side of the host<->device boundary.

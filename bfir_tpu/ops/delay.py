@@ -1,6 +1,6 @@
 """Integer and fractional (subsample) delay lines.
 
-TPU-native equivalent of the reference's ``brutefir/delay.{cpp,hpp}``:
+Device equivalent of the reference's ``brutefir/delay.{cpp,hpp}``:
 
 - integer delay ring + runtime delay changes -> ``delay_allocate_buffer`` /
   ``update_delay_buffer`` / ``change_delay`` (delay.cpp:56-140,495-600).
@@ -134,6 +134,8 @@ class FractionalDelayLine:
         ).reshape(c, n, self.length)
         coefs = self.bank[substeps + self.step_count - 1]  # [C, K]
         # correlation: out[t] = sum_k win[t, k] * h[K-1-k] (h applied as conv)
-        out = jnp.einsum("cnk,ck->cn", win, coefs[:, ::-1])
+        # HIGHEST: full float32 products (a GPU would otherwise use TF32)
+        out = jnp.einsum("cnk,ck->cn", win, coefs[:, ::-1],
+                         precision=jax.lax.Precision.HIGHEST)
         new_hist = ext[:, -state.history.shape[1]:]
         return DelayState(history=new_hist), out

@@ -1,24 +1,24 @@
-"""Double-float (two-f32) arithmetic and transforms for f32-only TPUs.
+"""Double-float (two-f32) arithmetic and transforms in float32.
 
 The reference plugin runs its whole pipeline in C double (REALSIZE=8,
-/root/reference/foo_dsp_bfir/common.h:17). This backend has no f64 compute,
-so f64-class capability is provided as *double-float* (df64): every value is
+foo_dsp_bfir/common.h:17). Without float64 compute (x64
+off), f64-class capability is provided as *double-float* (df64): every value is
 an unevaluated sum hi + lo of two f32s (~49 bits of significand), with
 error-free transformations (Knuth TwoSum, Dekker/Veltkamp TwoProd — no FMA
-required) on the VPU.
+required).
 
 Where it's used:
 - coefficient spectra preparation (one-time, per build): the measured f32
-  error budget (CLAUDE.md) shows f32-computed coefficient FFTs cost ~9 dB
+  error budget shows f32-computed coefficient FFTs cost ~9 dB
   of final SNR even when stored as f32 — df64-computed, f32-stored
   coefficients recover that for free at stream time;
 - the extended-precision engine path (runtime df64 transforms).
 
-Design note: the MXU cannot carry compensated accumulation (its f32
+Design note: a matrix unit cannot carry compensated accumulation (its f32
 accumulator rounds every partial sum), so df64 DFT stages here are built
-from *elementwise* VPU mul/adds inside `lax.fori_loop` over the small DFT
+from *elementwise* mul/adds inside `lax.fori_loop` over the small DFT
 dimension (n1, n2 <= 64 for the four-step) — each product/sum is an exact
-EFT pair. That trades MXU throughput for exactness; the four-step keeps the
+EFT pair. That trades matrix throughput for exactness; the four-step keeps the
 op count O(M·(n1+n2)) so a [64, 2048] transform stays sub-millisecond.
 
 All functions take/return (hi, lo) pairs of identically-shaped f32 arrays.
@@ -194,7 +194,7 @@ def _dft_stage_df(xr: Pair, xi: Pair, n: int, inverse: bool,
     """DFT of size n over the LAST axis of [..., n] df operands, computed as
     n elementwise df mul-add passes (lax.fori_loop over the input index j):
     out[.., k] = sum_j x[.., j] * W[j, k]. Every product and sum is an EFT
-    pair — no MXU accumulator rounding."""
+    pair — no matrix-unit accumulator rounding."""
     cr_h, cr_l, ci_h, ci_l = _dft_weights_df(n, inverse)
     wr_h = jnp.asarray(cr_h * scale, jnp.float32)
     wr_l = jnp.asarray(cr_l * scale, jnp.float32)

@@ -1,6 +1,6 @@
 """TPDF dither + error-feedback requantization.
 
-TPU-native equivalent of the reference's ``brutefir/dither.{cpp,hpp}``:
+Device equivalent of the reference's ``brutefir/dither.{cpp,hpp}``:
 
 - random table + randmap  -> ``dither.cpp:29-103``. The reference draws int8
   bytes from a Tausworthe PRNG and adds ``randmap[b[i] - b[i-1]]`` to each
@@ -107,14 +107,10 @@ def quantize_hp_tpdf(
     imax: float,
     state: DitherState,
     of: OverflowStats,
-    use_pallas: bool = False,
-    interpret: bool = False,
 ) -> Tuple[jax.Array, DitherState, OverflowStats]:
     """Requantize ``x`` [C, N] (already scaled to integer full-scale units)
     with high-passed TPDF dither + {1,-1} error feedback.
 
-    use_pallas runs the sequential loop as an on-chip Pallas kernel
-    (kernels.dither_kernel) instead of lax.scan — identical results.
     Returns (int32 samples [C, N], new_state, new_overflow_stats).
     """
     c, n = x.shape
@@ -124,16 +120,6 @@ def quantize_hp_tpdf(
     all_bytes = jnp.concatenate([state.prev_byte[:, None], bytes_blk], axis=1)
     diff = all_bytes[:, 1:] - all_bytes[:, :-1]  # [C, N]
     dither_vals = (0.5 + (diff.astype(dtype) + 1.0) / 255.0)  # randmap closed form
-
-    if use_pallas:
-        from bfir_tpu.kernels.dither_kernel import quantize_hp_tpdf_pallas
-
-        q, e0, e1, nof, lg, ilg = quantize_hp_tpdf_pallas(
-            x, dither_vals, state.e0, state.e1, float(imin), float(imax),
-            of.n_overflows, of.largest, of.intlargest, interpret=interpret,
-        )
-        new_state = DitherState(e0=e0, e1=e1, prev_byte=bytes_blk[:, -1], key=knext)
-        return q, new_state, OverflowStats(nof, lg, ilg)
 
     imin_f = jnp.asarray(imin, dtype)
     imax_f = jnp.asarray(imax, dtype)

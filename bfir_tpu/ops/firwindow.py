@@ -1,6 +1,6 @@
 """Kaiser window + windowed-sinc FIR design.
 
-TPU-native (vectorized jnp) equivalent of the reference's ``brutefir/firwindow.c``:
+Vectorized jnp equivalent of the reference's ``brutefir/firwindow.c``:
 
 - ``i_zero``          -> ``firwindow.c:15-52``  (dynamic-range-safe Bessel I0)
 - ``kaiser``          -> ``firwindow.c:54-87``

@@ -1,6 +1,6 @@
 """PCM sample-format codecs: raw interleaved bytes <-> float channel tensors.
 
-TPU-native split of the reference's ``brutefir/raw2real.{cpp,hpp}`` and
+Device/host split of the reference's ``brutefir/raw2real.{cpp,hpp}`` and
 ``real2raw.{cpp,hpp}``:
 
 - the *scaling/quantization* (multiply by ``sf.scale``, dither, clip,
@@ -8,7 +8,7 @@ TPU-native split of the reference's ``brutefir/raw2real.{cpp,hpp}`` and
   runs on device as vectorized jnp ops (``scale_*``, ``ops.dither``);
 - the *byte packing* (endianness, 24-bit-in-3-bytes, padded containers with
   bit shift — raw2real.cpp:16-424, real2raw.cpp S24 path) is host-side numpy
-  bit-twiddling: TPU-side audio is always native float32/float64, exactly as
+  bit-twiddling: device-side audio is always native float32/float64, exactly as
   the reference's engine core is always float/double with formats only at
   the boundary.
 

@@ -10,8 +10,10 @@ The reference is single-threaded C++ with no distribution (SURVEY.md §2
   its partitions, partial sums meet in a psum over ``"p"``.
 
 Multi-host: ``jax.distributed.initialize`` + a mesh over all devices;
-within-host shards ride ICI, the ``"c"`` axis is placed outermost so
-cross-host traffic (DCN) only carries the small per-channel boundaries.
+within-host shards talk over NVLink (every GPU of a host reaches every
+other at the same rate, so the mesh follows the algorithm, not a torus),
+and the ``"c"`` axis is placed outermost so cross-host traffic only carries
+the small per-channel boundaries.
 """
 
 from __future__ import annotations

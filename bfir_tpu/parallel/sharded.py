@@ -4,8 +4,8 @@ The product path is an explicit ``shard_map`` ring schedule
 (``make_ppermute_step``): channels sharded over mesh axis "c", the ring of
 delayed input spectra and the coefficient partitions over "p". Per step,
 each device rotates its oldest ring slot to its "p"-neighbor (one
-nearest-neighbor ICI ``collective-permute`` of a [C_local, F] spectrum),
-MACs its local partitions, and ``psum``s partials over "p" (one ICI
+``collective-permute`` of a [C_local, F] spectrum),
+MACs its local partitions, and ``psum``s partials over "p" (one
 all-reduce). That is the *entire* per-step communication; the compiled HLO
 is asserted in ``tests/test_parallel.py::test_hlo_collectives`` to contain
 exactly these collectives and **no all-gather**.
@@ -16,8 +16,10 @@ measured at the compiler level it inserts extra all-gathers around the ring
 insert, so it is NOT the flagship path. See ``parallel/COMM_MODEL.md`` for
 the bytes-per-step communication model backing the scaling target.
 
-This is the "channels+partitions sharded, spectra exchanged via ICI
-collectives, partials psum'd" design of BASELINE.json's north star. The
+This is the "channels+partitions sharded, spectra exchanged by device
+collectives, partials psum'd" design. On a host whose GPUs are joined all
+to all by NVLink every device reaches every other at the same rate, so the
+ring over "p" follows the algorithm and not a physical topology. The
 reference has no counterpart (single-threaded C++, SURVEY.md §2).
 """
 
@@ -34,6 +36,7 @@ from jax.sharding import Mesh
 from bfir_tpu.core import convolver as cv
 from bfir_tpu.core.spec import FilterSpec
 from bfir_tpu.parallel import mesh as M
+from bfir_tpu.utils import platform
 
 
 def _ring_body(mesh: Mesh, block_length: int):
@@ -64,7 +67,7 @@ def _ring_body(mesh: Mesh, block_length: int):
 
 
 def make_ppermute_step(mesh: Mesh, spec: FilterSpec, n_channels: int):
-    """Explicit ICI ring-pipeline step via shard_map (SURVEY.md §2: "rotate
+    """Explicit ring-pipeline step via shard_map (SURVEY.md §2: "rotate
     spectrum ring slices while accumulating partial sums").
 
     State layout equals the *rolled* representation sharded over ("p","c"):
@@ -74,15 +77,15 @@ def make_ppermute_step(mesh: Mesh, spec: FilterSpec, n_channels: int):
     - every device computes the new input spectrum locally (cheap, avoids a
       broadcast),
     - each device ppermutes its *oldest* slot to the next device — the only
-      inter-device data motion, one [C_local, F] spectrum over a
-      nearest-neighbor ICI hop,
+      inter-device data motion, one [C_local, F] spectrum to the next "p"
+      device,
     - shifts its local ring by one, inserting the received spectrum (device
       0 inserts the fresh one),
     - MACs its local partitions and psums partials over "p".
 
     Numerically identical to ``core.convolver.step_rolled``; unlike the
     GSPMD-compiled version, the communication schedule is explicit and
-    guaranteed nearest-neighbor (verified at the HLO level in
+    one ring permute plus one all-reduce (verified at the HLO level in
     tests/test_parallel.py::test_hlo_collectives).
     """
     from jax import shard_map
@@ -159,9 +162,9 @@ def make_ppermute_crossfade_step(mesh: Mesh, spec: FilterSpec, n_channels: int):
 
 def _hc_chunk_reorder(coeff, p_shards: int):
     """Reorder each p-shard's coefficient chunk so the single-chip Pallas
-    MAC (``kernels.spectrum_mac.mac_pallas_hc``, which walks ring slots as
+    MAC (``kernels.spectrum_mac.mac_hc``, which walks ring slots as
     ``(pos - i) % P``) computes the ROLLED-layout sum ``sum_j coeff[j] *
-    ring[j]`` when called with ``pos = 0``: kernel index i reads local ring
+    ring[j]`` when called with ``pos = 0``: MAC index i reads local ring
     slot ``(P_l - i) % P_l``, so local coeff index i must hold partition
     ``(P_l - i) % P_l`` — i.e. ``[c0, c_{P_l-1}, ..., c1]`` per chunk. A
     one-time build-step permutation; zero runtime cost."""
@@ -173,11 +176,10 @@ def _hc_chunk_reorder(coeff, p_shards: int):
 
 
 def make_ppermute_step_hc(mesh: Mesh, spec: FilterSpec, n_channels: int,
-                          interpret: bool = False, use_pallas: bool = True,
                           crossfade: bool = False, shared: bool = False):
     """The ppermute ring schedule with the OPTIMIZED single-chip hc engine
-    as the shard-local compute (VERDICT r2 weak #7: pod-scale and
-    single-chip must run the same kernels).
+    as the shard-local compute (pod-scale and
+    single-chip run the same MAC).
 
     Identical communication to ``make_ppermute_step`` — one nearest-neighbor
     ``collective-permute`` of the oldest ring slot + one ``psum`` over "p"
@@ -185,7 +187,7 @@ def make_ppermute_step_hc(mesh: Mesh, spec: FilterSpec, n_channels: int,
     the packed halfcomplex representation: ring [P, 2, C, Hp] (re/im planes,
     lane 0 = (DC.re, Nyquist.re), Hp = 128-lane-aligned n_fft/2; 11% less
     MAC traffic than full-width spectra), the shard-local MAC is the exact
-    ``mac_pallas_hc`` kernel of the single-chip path (coefficients
+    ``mac_hc`` of the single-chip path (coefficients
     pre-reordered per chunk, see ``_hc_chunk_reorder``), and the
     overlap-save tail is the single-matmul half-DFT basis
     (``ops.fft.irfft_hc_tail``)."""
@@ -209,11 +211,7 @@ def make_ppermute_step_hc(mesh: Mesh, spec: FilterSpec, n_channels: int,
         cs = coeff_l.shape[2]  # 1 when the filter is SHARED across channels
         ring2 = ring_l.reshape(pl_, 2 * c_l, hp)
         coeff2 = coeff_l.reshape(pl_, 2 * cs, hp)
-        pos0 = jnp.zeros((), jnp.int32)
-        if use_pallas:
-            return K.mac_pallas_hc(ring2, coeff2, pos0, interpret=interpret)
-        return K.mac_reference_hc(ring2[:, :c_l], ring2[:, c_l:],
-                                  coeff2[:, :cs], coeff2[:, cs:], pos0)
+        return K.mac_hc(ring2, coeff2, jnp.zeros((), jnp.int32))
 
     def advance(ring_l, prev_l, block_l):
         hp = ring_l.shape[-1]
@@ -239,7 +237,7 @@ def make_ppermute_step_hc(mesh: Mesh, spec: FilterSpec, n_channels: int,
             in_specs=(P("p", None, "c", None), P("c", None), P(),
                       Pco, P("c", None)),
             out_specs=(P("p", None, "c", None), P("c", None), P(), P("c", None)),
-            check_vma=False,  # pallas_call out_shape carries no vma info
+            check_vma=False,
         )
         def body(ring_l, prev_l, counter, coeff_l, block_l):
             block_l = block_l.astype(prev_l.dtype)
@@ -290,10 +288,10 @@ def make_ppermute_step_hc(mesh: Mesh, spec: FilterSpec, n_channels: int,
 
 
 # ---------------------------------------------------------------------------
-# Sharded NON-UNIFORM engine (VERDICT r3 next #1): the two-stage Gardner
-# schedule — the fastest single-chip engine (core/nonuniform.py, 0.121 vs
-# 0.218 ms/block at the flagship geometry) — run over the same ("c", "p")
-# mesh and the same ring-rotate ICI schedule as the hc path. Structure:
+# Sharded NON-UNIFORM engine: the two-stage Gardner
+# schedule — the single-chip long-filter engine (core/nonuniform.py) — run
+# over the same ("c", "p") mesh and the same ring-rotate schedule as the hc
+# path. Structure:
 #
 # - HEAD stage: p_head partitions at N, rolled ring [p_head, 2, C, Hp_h]
 #   sharded over ("p", -, "c", -). Per block: one nearest-neighbor
@@ -330,8 +328,7 @@ def _nu_pad_tail(nuspec, p_shards: int):
                      nuspec.dtype, nuspec.tail_store, nuspec.head_store)
 
 
-def _make_nu_shard_parts(mesh: Mesh, nuspec, n_channels: int,
-                         interpret: bool, use_pallas: bool):
+def _make_nu_shard_parts(mesh: Mesh, nuspec, n_channels: int):
     """Shared shard-local building blocks for every sharded-nu step form."""
     from bfir_tpu.kernels import spectrum_mac as K
     from bfir_tpu.ops import fft as F
@@ -360,27 +357,15 @@ def _make_nu_shard_parts(mesh: Mesh, nuspec, n_channels: int,
 
     def local_mac(ring_l, coeff_l, tiled: bool):
         """Shard-local rolled MAC (chunk-reordered coeffs, pos=0): the exact
-        single-chip kernels — ``mac_pallas_hc`` for the head,
-        ``mac_pallas_hc_tiled`` for the tail's large planes (VMEM bound).
+        single-chip MAC (``mac_hc``) for both stages.
         bf16-stored tail planes accumulate in f32, as single-chip. SHARED
         coefficient planes ([P, 2, 1, Hp]) broadcast across channels
-        in-kernel, exactly as single-chip."""
+        in the MAC, exactly as single-chip."""
         pl_, two, c_l, hp = ring_l.shape
         cs = coeff_l.shape[2]
         ring2 = ring_l.reshape(pl_, 2 * c_l, hp)
         coeff2 = coeff_l.reshape(pl_, 2 * cs, hp)
-        pos0 = jnp.zeros((), jnp.int32)
-        if use_pallas:
-            if tiled:
-                return K.mac_pallas_hc_tiled(ring2, coeff2, pos0,
-                                             tile=min(2048, hp),
-                                             interpret=interpret)
-            return K.mac_pallas_hc(ring2, coeff2, pos0, interpret=interpret)
-        if ring2.dtype == jnp.bfloat16:
-            ring2 = ring2.astype(jnp.float32)
-            coeff2 = coeff2.astype(jnp.float32)
-        return K.mac_reference_hc(ring2[:, :c_l], ring2[:, c_l:],
-                                  coeff2[:, :cs], coeff2[:, cs:], pos0)
+        return K.mac_hc(ring2, coeff2, jnp.zeros((), jnp.int32))
 
     def head_block(ring_l, prev_l, block_l, coeff_l):
         """Head stage: advance + MAC + one stacked psum + direct tail
@@ -393,8 +378,8 @@ def _make_nu_shard_parts(mesh: Mesh, nuspec, n_channels: int,
 
     def tail_fire(ring_l, prev_l, mblock_l, coeff_l):
         """Tail stage fire: advance + tiled MAC + one stacked psum + the
-        tail inverse (the fused balanced kernel where eligible — the same
-        shard-local compute as single-chip, core.nonuniform._tail_inverse).
+        tail inverse (the same shard-local compute as single-chip,
+        core.nonuniform._tail_inverse).
         Returns (new ring, z [C_l, M])."""
         from bfir_tpu.core.nonuniform import _tail_inverse
 
@@ -402,13 +387,12 @@ def _make_nu_shard_parts(mesh: Mesh, nuspec, n_channels: int,
         ring_l = advance(ring_l, prev_l, mblock_l)
         zr, zi = local_mac(ring_l, coeff_l, tiled=True)
         z = jax.lax.psum(jnp.stack([zr, zi]), "p")
-        return ring_l, _tail_inverse(z[0], z[1], m, use_pallas, interpret)
+        return ring_l, _tail_inverse(z[0], z[1], m)
 
     return advance, local_mac, head_block, tail_fire
 
 
 def make_ppermute_step_nu(mesh: Mesh, nuspec, n_channels: int,
-                          interpret: bool = False, use_pallas: bool = True,
                           shared: bool = False):
     """Per-block sharded two-stage step: state/coeffs are
     ``core.nonuniform.NuState``/``NuCoeffs`` with ROLLED 4-D rings
@@ -423,7 +407,7 @@ def make_ppermute_step_nu(mesh: Mesh, nuspec, n_channels: int,
     n = nuspec.block_length
     ratio = nuspec.ratio
     _, _, head_block, tail_fire = _make_nu_shard_parts(
-        mesh, nuspec, n_channels, interpret, use_pallas)
+        mesh, nuspec, n_channels)
 
     P4 = P("p", None, "c", None)
     Pco = P("p", None, None, None) if shared else P4
@@ -480,7 +464,6 @@ def make_ppermute_step_nu(mesh: Mesh, nuspec, n_channels: int,
 
 
 def make_ppermute_macro_nu(mesh: Mesh, nuspec, n_channels: int,
-                           interpret: bool = False, use_pallas: bool = True,
                            shared: bool = False):
     """Cond-free M-cycle macro form (sharded ``step_nu_macro``): R unrolled
     head blocks + one unconditional tail fire. The per-block form's untaken
@@ -496,7 +479,7 @@ def make_ppermute_macro_nu(mesh: Mesh, nuspec, n_channels: int,
     n = nuspec.block_length
     ratio = nuspec.ratio
     _, _, head_block, tail_fire = _make_nu_shard_parts(
-        mesh, nuspec, n_channels, interpret, use_pallas)
+        mesh, nuspec, n_channels)
 
     P4 = P("p", None, "c", None)
     Pco = P("p", None, None, None) if shared else P4
@@ -540,8 +523,6 @@ def make_ppermute_macro_nu(mesh: Mesh, nuspec, n_channels: int,
 
 def make_ppermute_step_nu_crossfade(mesh: Mesh, nuspec, n_channels: int,
                                     head_ramp: bool = True,
-                                    interpret: bool = False,
-                                    use_pallas: bool = True,
                                     shared: bool = False):
     """Sharded form of ``core.nonuniform.step_nu_crossfade``: glitch-free
     live filter change on the sharded two-stage engine. head_ramp=True is
@@ -561,7 +542,7 @@ def make_ppermute_step_nu_crossfade(mesh: Mesh, nuspec, n_channels: int,
     m = nuspec.m
     ratio = nuspec.ratio
     advance, local_mac, head_block, _ = _make_nu_shard_parts(
-        mesh, nuspec, n_channels, interpret, use_pallas)
+        mesh, nuspec, n_channels)
 
     P4 = P("p", None, "c", None)
     Pco = P("p", None, None, None) if shared else P4
@@ -605,8 +586,8 @@ def make_ppermute_step_nu_crossfade(mesh: Mesh, nuspec, n_channels: int,
             z = jax.lax.psum(jnp.stack([zo[0], zo[1], zn[0], zn[1]]), "p")
             from bfir_tpu.core.nonuniform import _tail_inverse
 
-            z_old = _tail_inverse(z[0], z[1], m, use_pallas, interpret)
-            z_new = _tail_inverse(z[2], z[3], m, use_pallas, interpret)
+            z_old = _tail_inverse(z[0], z[1], m)
+            z_new = _tail_inverse(z[2], z[3], m)
             ramp_m = jnp.arange(m, dtype=z_old.dtype) / (m - 1)
             zz = z_old * (1.0 - ramp_m) + z_new * ramp_m
             pending = jnp.concatenate([pending[1:], zz[None]], axis=0)
@@ -639,10 +620,10 @@ def make_ppermute_step_nu_crossfade(mesh: Mesh, nuspec, n_channels: int,
 
 
 # ---------------------------------------------------------------------------
-# Sharded THREE-stage engine (VERDICT r4 next #3): core.nonuniform's
+# Sharded THREE-stage engine: core.nonuniform's
 # recursive Gardner schedule — the auto pick for very long filters
-# (>= 640 partitions, where its flat ~0.18 ms/block undercuts the two-stage
-# floor) — run over the same ("c", "p") mesh and ring-rotate ICI schedule.
+# (>= 640 partitions, where its nearly flat cost undercuts the two-stage
+# one) — run over the same ("c", "p") mesh and ring-rotate schedule.
 # Three rolled rings, all sharded over ("p", -, "c", -):
 #
 # - OUTER head: p_head partitions at N — ppermute + psum every block.
@@ -671,8 +652,7 @@ def _nu3_pad_far(spec3, p_shards: int):
     return NU.Nu3Spec(spec3.block_length, spec3.ratio1, spec3.p_head, inner)
 
 
-def _make_nu3_shard_parts(mesh: Mesh, spec3, n_channels: int,
-                          interpret: bool, use_pallas: bool):
+def _make_nu3_shard_parts(mesh: Mesh, spec3, n_channels: int):
     """Stage builders for the sharded three-stage engine: the shared
     advance/local_mac of the two-stage path plus per-stage fire functions
     (outer head at N: untiled MAC + direct tail basis; inner head at M1 and
@@ -682,7 +662,7 @@ def _make_nu3_shard_parts(mesh: Mesh, spec3, n_channels: int,
     from bfir_tpu.ops import fft as F
 
     advance, local_mac, head_block, _ = _make_nu_shard_parts(
-        mesh, spec3.inner, n_channels, interpret, use_pallas)
+        mesh, spec3.inner, n_channels)
 
     def outer_head(ring_l, prev_l, block_l, coeff_l):
         n = spec3.block_length
@@ -697,13 +677,12 @@ def _make_nu3_shard_parts(mesh: Mesh, spec3, n_channels: int,
         ring_l = advance(ring_l, prev_l, mblock_l)
         zr, zi = local_mac(ring_l, coeff_l, tiled=True)
         z = jax.lax.psum(jnp.stack([zr, zi]), "p")
-        return ring_l, _tail_inverse(z[0], z[1], m, use_pallas, interpret)
+        return ring_l, _tail_inverse(z[0], z[1], m)
 
     return advance, local_mac, outer_head, stage_fire
 
 
 def make_ppermute_step_nu3(mesh: Mesh, spec3, n_channels: int,
-                           interpret: bool = False, use_pallas: bool = True,
                            shared: bool = False):
     """Per-block sharded three-stage step: state/coeffs are
     ``core.nonuniform.Nu3State``/``Nu3Coeffs`` with ROLLED 4-D rings.
@@ -719,7 +698,7 @@ def make_ppermute_step_nu3(mesh: Mesh, spec3, n_channels: int,
     inner = spec3.inner
     m1, r2, m2 = spec3.m1, inner.ratio, inner.m
     _, _, outer_head, stage_fire = _make_nu3_shard_parts(
-        mesh, spec3, n_channels, interpret, use_pallas)
+        mesh, spec3, n_channels)
 
     P4 = P("p", None, "c", None)
     Pco = P("p", None, None, None) if shared else P4
@@ -821,7 +800,6 @@ def make_ppermute_step_nu3(mesh: Mesh, spec3, n_channels: int,
 
 
 def make_ppermute_macro_nu3(mesh: Mesh, spec3, n_channels: int,
-                            interpret: bool = False, use_pallas: bool = True,
                             shared: bool = False):
     """Cond-free SUPER-cycle macro form (sharded
     ``process_blocks_nu3_fast`` body): r1*r2 unrolled outer-head blocks with
@@ -840,7 +818,7 @@ def make_ppermute_macro_nu3(mesh: Mesh, spec3, n_channels: int,
     inner = spec3.inner
     m1, r2, m2 = spec3.m1, inner.ratio, inner.m
     _, _, outer_head, stage_fire = _make_nu3_shard_parts(
-        mesh, spec3, n_channels, interpret, use_pallas)
+        mesh, spec3, n_channels)
 
     P4 = P("p", None, "c", None)
     Pco = P("p", None, None, None) if shared else P4
@@ -907,19 +885,20 @@ class ShardedEngine:
     """Multi-device partitioned convolver.
 
     ``schedule="ppermute"`` (default, the product path): explicit shard_map
-    ring with guaranteed nearest-neighbor communication.
+    ring: one permute of a ring slot + one all-reduce per block.
     ``schedule="gspmd"``: jit of ``core.convolver.step_rolled`` under
     NamedShardings, letting GSPMD choose the collectives — kept as a
     numerical cross-check (it inserts extra all-gathers; see module
     docstring).
 
-    ``local_impl``: the shard-local compute. "nonuniform" (default on
-    non-CPU backends when the filter is long enough) runs the two-stage
+    ``local_impl``: the shard-local compute. "nonuniform" (the session's
+    default on accelerator meshes when the filter is long enough) runs the two-stage
     Gardner schedule — the fastest single-chip engine — sharded per stage
     (see the sharded-nu section above); "hc" runs the uniform optimized
-    path — packed halfcomplex state, the ``mac_pallas_hc`` kernel,
-    single-matmul tail; "complex" is the complex-spectra jnp formulation
-    (default on CPU, numerically f64-capable)."""
+    path — packed halfcomplex state, the ``mac_hc`` MAC, the halfcomplex
+    overlap-save tail; "complex" is the complex-spectra jnp formulation
+    (default on CPU meshes, numerically f64-capable). ``None`` picks "hc"
+    on an accelerator mesh and "complex" on a CPU mesh."""
 
     def __init__(self, spec: FilterSpec, n_channels: int, mesh: Mesh,
                  schedule: str = "ppermute", local_impl: Optional[str] = None,
@@ -934,7 +913,8 @@ class ShardedEngine:
         if schedule not in ("ppermute", "gspmd"):
             raise ValueError(f"schedule must be ppermute or gspmd, got {schedule!r}")
         if local_impl is None:
-            local_impl = "hc" if jax.default_backend() != "cpu" else "complex"
+            local_impl = "complex" if platform.is_cpu(
+                mesh.devices.flat[0]) else "hc"
         if local_impl not in ("hc", "complex", "nonuniform", "nonuniform3"):
             raise ValueError(
                 "local_impl must be hc, complex, nonuniform or nonuniform3, "
@@ -946,13 +926,9 @@ class ShardedEngine:
         self.mesh = mesh
         self.schedule = schedule
         self.local_impl = local_impl
-        # interpret per the MESH's platform, not the default backend: the
-        # multichip dryrun builds a CPU-device mesh while the default
-        # backend is the TPU
-        self._interpret = mesh.devices.flat[0].platform == "cpu"
         self.nuspec = None  # set by the nonuniform branch
         # shared_coeffs: one filter for all channels — coefficient planes
-        # [P, 2, 1, Hp] replicated over "c" (1/C the coefficient HBM per
+        # [P, 2, 1, Hp] replicated over "c" (1/C the coefficient memory per
         # chip, like single-chip). hc / nonuniform local engines only.
         self.shared_coeffs = bool(shared_coeffs) and local_impl in (
             "hc", "nonuniform", "nonuniform3")
@@ -1013,11 +989,9 @@ class ShardedEngine:
             )
             self._block_sharding = NamedSharding(mesh, P("c", None))
             self._step_fn = make_ppermute_step_nu3(
-                mesh, nuspec, n_channels, interpret=self._interpret,
-                use_pallas=True, shared=self.shared_coeffs)
+                mesh, nuspec, n_channels, shared=self.shared_coeffs)
             self._macro_fn = make_ppermute_macro_nu3(
-                mesh, nuspec, n_channels, interpret=self._interpret,
-                use_pallas=True, shared=self.shared_coeffs)
+                mesh, nuspec, n_channels, shared=self.shared_coeffs)
             self._scan_macro = None
             self._nu_xfade = None
             dt = jnp.dtype(spec.dtype)
@@ -1092,11 +1066,9 @@ class ShardedEngine:
             )
             self._block_sharding = NamedSharding(mesh, P("c", None))
             self._step_fn = make_ppermute_step_nu(
-                mesh, nuspec, n_channels, interpret=self._interpret,
-                use_pallas=True, shared=self.shared_coeffs)
+                mesh, nuspec, n_channels, shared=self.shared_coeffs)
             self._macro_fn = make_ppermute_macro_nu(
-                mesh, nuspec, n_channels, interpret=self._interpret,
-                use_pallas=True, shared=self.shared_coeffs)
+                mesh, nuspec, n_channels, shared=self.shared_coeffs)
             self._macro = None
             self._scan_macro = None
             self._nu_xfade = None
@@ -1133,8 +1105,7 @@ class ShardedEngine:
                 else P("p", None, "c", None))
             self._block_sharding = NamedSharding(mesh, P("c", None))
             self._step_fn = make_ppermute_step_hc(
-                mesh, spec, n_channels, interpret=self._interpret,
-                use_pallas=True, shared=self.shared_coeffs)
+                mesh, spec, n_channels, shared=self.shared_coeffs)
         else:
             st_sh = M.state_shardings(mesh)
             self._state_shardings = cv.ConvolverState(
@@ -1244,7 +1215,6 @@ class ShardedEngine:
             mk = lambda hr: jax.jit(
                 make_ppermute_step_nu_crossfade(
                     self.mesh, self.nuspec, self.n_channels, head_ramp=hr,
-                    interpret=self._interpret, use_pallas=True,
                     shared=self.shared_coeffs),
                 in_shardings=(self._state_shardings, self._coeff_sharding,
                               self._coeff_sharding, self._block_sharding),
@@ -1270,7 +1240,7 @@ class ShardedEngine:
             if self.local_impl == "hc":
                 fn = make_ppermute_step_hc(
                     self.mesh, self.spec, self.n_channels,
-                    interpret=self._interpret, use_pallas=True, crossfade=True,
+                    crossfade=True,
                     shared=self.shared_coeffs)
             elif self.schedule == "ppermute":
                 fn = make_ppermute_crossfade_step(self.mesh, self.spec,
@@ -1447,7 +1417,7 @@ def dryrun(n_devices: Optional[int] = None, mesh: Optional[Mesh] = None) -> None
     # gross error; 1e-5 leaves ~30x headroom over observed fp noise
     if err > 1e-5:
         raise AssertionError(f"sharded step diverged from single-device: {err}")
-    # and the hc-local composition (the TPU-default shard compute): same
+    # and the hc-local composition (the accelerator-default shard compute): same
     # mesh, packed halfcomplex state + Pallas MAC per shard
     eng_hc = ShardedEngine(spec, c, m, local_impl="hc")
     st_hc = eng_hc.init_state()
@@ -1462,7 +1432,7 @@ def dryrun(n_devices: Optional[int] = None, mesh: Optional[Mesh] = None) -> None
     if err_hc > 1e-5:
         raise AssertionError(f"sharded hc step diverged: {err_hc}")
     # and the nonuniform-local composition (the pod form of the fastest
-    # single-chip engine, VERDICT r3 next #1): two-stage geometry, head +
+    # single-chip engine): two-stage geometry, head +
     # cadenced tail collectives, checked against the single-chip step_nu
     from bfir_tpu.core import nonuniform as NU
 
@@ -1486,14 +1456,13 @@ def dryrun(n_devices: Optional[int] = None, mesh: Optional[Mesh] = None) -> None
     for b in range(nblocks):
         block = x_nu[:, b * n : (b + 1) * n]
         st_nu, o = eng_nu.step(st_nu, co_nu, block)
-        st_ref, o_ref = NU.step_nu(st_ref, co_ref, block, interpret=True,
-                                   use_pallas=False)
+        st_ref, o_ref = NU.step_nu(st_ref, co_ref, block)
         err_nu = max(err_nu, float(np.max(np.abs(np.asarray(o)
                                                  - np.asarray(o_ref)))))
     if err_nu > 1e-4:
         raise AssertionError(f"sharded nonuniform step diverged: {err_nu}")
-    # and the nonuniform3-local composition (the very-long-filter tier,
-    # VERDICT r4 next #3): three stages at their own collective cadences,
+    # and the nonuniform3-local composition (the very-long-filter tier):
+    # three stages at their own collective cadences,
     # checked against the single-chip step_nu3
     r1 = r2 = 2
     p_head3 = int(np.lcm(2 * r1, p_shards))
@@ -1518,8 +1487,7 @@ def dryrun(n_devices: Optional[int] = None, mesh: Optional[Mesh] = None) -> None
     for b in range(nblocks3):
         block = x3[:, b * n : (b + 1) * n]
         st3, o = eng3.step(st3, co3, block)
-        st3_ref, o_ref = NU.step_nu3(st3_ref, co3_ref, block, interpret=True,
-                                     use_pallas=False)
+        st3_ref, o_ref = NU.step_nu3(st3_ref, co3_ref, block)
         err3 = max(err3, float(np.max(np.abs(np.asarray(o)
                                              - np.asarray(o_ref)))))
     if err3 > 1e-4:

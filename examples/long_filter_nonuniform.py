@@ -1,18 +1,16 @@
 """Long-filter convolution with the two-stage non-uniform engine.
 
-Demonstrates the round-3 performance surface on a reverb-scale filter
-(131072 taps = 3 s at 44.1 kHz):
+Demonstrates the long-filter surface on a reverb-scale filter (131072
+taps = 3 s at 44.1 kHz):
 
 - ``engine_mode="auto"`` picks the non-uniform (Gardner two-stage) engine
-  for long filters on accelerator backends — measured 0.100 ms/block vs
-  the uniform engine's 0.218 at 64 ch on a TPU v5e-lite, same one-block
-  latency (core/nonuniform.py).
-- ``nu_tail_store="bfloat16"`` (opt-in) halves the tail stage's HBM
+  for long filters on an accelerator — ~4x fewer MAC bytes per block than
+  the uniform engine at the same one-block latency (core/nonuniform.py).
+- ``nu_tail_store="bfloat16"`` (opt-in) halves the tail stage's memory
   traffic for a documented ~56 dB + tail-energy-deficit precision class.
-- The known-answer self-check verdict and every compiled executable
-  (including Pallas kernels) are cached in the profile dir
-  (engine/selfcheck.py, engine/wisdom.py), so re-opening the same session
-  skips both the 32-block verification stream and the Mosaic compile.
+- The known-answer self-check verdict is cached in the profile dir
+  (engine/selfcheck.py), so re-opening the same session skips the 32-block
+  verification stream; compiled graphs go to JAX's persistent cache.
 
 Run:  python examples/long_filter_nonuniform.py [--cpu]
 """
@@ -44,7 +42,9 @@ def main():
     from bfir_tpu.engine.session import StreamProcessor
     from bfir_tpu.io import wavio
 
-    on_cpu = jax.default_backend() == "cpu"
+    from bfir_tpu.utils import platform
+
+    on_cpu = platform.is_cpu()
     rate = 44100
     taps = 32768 if on_cpu else 131072  # CPU demo keeps the runtime short
     rng = np.random.default_rng(0)
@@ -87,8 +87,7 @@ def main():
                         / float(((y - ref) ** 2).sum()))
     print(f"SNR vs scipy float64: {snr:.1f} dB")
     print("re-opening the same config now hits the self-check verdict cache "
-          "and the executable wisdom cache (see the profile dir: "
-          f"{cache.path('wisdom')})")
+          f"({cache.path('selfcheck-cache.json')})")
 
 
 if __name__ == "__main__":

@@ -24,8 +24,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
-jax.config.update("jax_platforms", "cpu")  # virtual mesh demo; TPU pods
-                                           # use the same code path
+jax.config.update("jax_platforms", "cpu")  # virtual mesh demo; a
+                                           # multi-GPU host uses the same
+                                           # code path
 
 import numpy as np
 from scipy import signal

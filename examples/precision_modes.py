@@ -1,8 +1,9 @@
-"""Worked example: engine precision modes on an f32-only accelerator.
+"""Worked example: engine precision modes in float32 arithmetic.
 
 The reference plugin computes in C double end to end (REALSIZE=8,
-foo_dsp_bfir/common.h:17). TPUs have no float64 — this example shows what
-that means in practice and how this framework closes the gap:
+foo_dsp_bfir/common.h:17). With x64 off JAX computes in float32 — this
+example shows what that means in practice and how this framework closes
+the gap:
 
 1. the default f32 halfcomplex path (fast: the streaming hot path),
 2. the same config with float64 requested -> the "extended" df64 engine
@@ -23,7 +24,7 @@ import numpy as np
 def main():
     import jax
 
-    if os.environ.get("BFIR_EXAMPLE_TPU") != "1":
+    if os.environ.get("BFIR_EXAMPLE_GPU") != "1":
         try:
             jax.config.update("jax_platforms", "cpu")
         except Exception:

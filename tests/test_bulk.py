@@ -4,7 +4,7 @@ The bulk engine re-partitions the filter at a large block size and runs the
 batched block-axis-FFT formulation; outputs must equal the exact linear
 convolution (scipy float64 oracle) and the streaming engines' outputs.
 Reference behavior: the reference reuses its streaming engine for offline
-work (preprocessor.cpp:143-148); this path is the TPU-first replacement.
+work (preprocessor.cpp:143-148); this path is the accelerator replacement.
 """
 
 import numpy as np
@@ -213,7 +213,7 @@ def test_session_render_refuses_bad_graph(tmp_path, monkeypatch):
 
 def test_bulk_renderer_nu_engine_matches_scipy(monkeypatch):
     """Long filters route the renderer through the nu macro scan (the
-    fastest verified bulk schedule on the TPU); exactness unchanged."""
+    bulk schedule accelerators take); exactness unchanged."""
     from bfir_tpu.core import bulk as BK
 
     monkeypatch.setattr(BK, "NU_BULK_MIN_TAPS", 4000)
@@ -245,7 +245,7 @@ def test_bulk_renderer_nu_multi_dispatch_state_threads(monkeypatch):
 
 
 def test_bulk_renderer_gbatch_engine_matches_scipy(monkeypatch):
-    """The TPU-default G-cycle batched engine (forced on CPU via
+    """The accelerator-default G-cycle batched engine (forced on CPU via
     nu_engine='gbatch'): exactness and multi-dispatch state threading."""
     from bfir_tpu.core import bulk as BK
 

@@ -308,7 +308,7 @@ def test_audio_server_rejects_bad_header(tmp_path):
 
 
 def test_audio_server_multi_client_concurrent(tmp_path):
-    """N=4 clients streaming CONCURRENTLY (VERDICT r4 next #5): each gets
+    """N=4 clients streaming CONCURRENTLY: each gets
     its own session and its own correct output (worst channel vs scipy),
     with no cross-talk between connections."""
     import threading

@@ -115,7 +115,7 @@ def test_per_channel_coefficients():
 
 
 def test_float32_snr():
-    # float32 path (TPU-native precision) must stay within float SNR of the
+    # float32 path (the accelerator default) must stay within float SNR of the
     # float64 oracle — BASELINE.md "output SNR dB" bound.
     rng = np.random.default_rng(6)
     spec = FilterSpec(block_length=256, n_partitions=4, dtype="float32")

@@ -97,9 +97,8 @@ def test_session_reconfigure_crossfades(tmp_path):
 
 
 def test_session_reconfigure_crossfades_packed(tmp_path):
-    """Same crossfade semantics on the packed/TPU engine path (Pallas kernel
-    interpreted on CPU) — the session same-geometry check no longer excludes
-    packed (VERDICT r1 weak #2)."""
+    """Same crossfade semantics on the packed engine path — the session
+    same-geometry check does not exclude packed."""
     import dataclasses
 
     from tests.test_engine import make_config, save_impulse
@@ -130,8 +129,8 @@ def test_session_reconfigure_crossfades_packed(tmp_path):
 
 
 def test_session_reconfigure_crossfades_hc(tmp_path):
-    """Crossfade semantics on the halfcomplex engine path (the TPU auto
-    default) — glitch-free live reconfigure."""
+    """Crossfade semantics on the halfcomplex engine path (auto's pick for
+    short filters on an accelerator) — glitch-free live reconfigure."""
     import dataclasses
 
     from tests.test_engine import make_config, save_impulse
@@ -182,15 +181,15 @@ def test_step_packed_crossfade_matches_complex():
     for b in range(2):
         blk = x[:, b * 128 : (b + 1) * 128]
         st_c, ref = cv.step(st_c, co_old, blk)
-        st_p, out = K.step_packed(st_p, pk_old, blk, interpret=True)
+        st_p, out = K.step_packed(st_p, pk_old, blk)
         np.testing.assert_allclose(np.asarray(out), np.asarray(ref), atol=1e-5)
     blk = x[:, 256:384]
     st_c, ref = cv.step_crossfade(st_c, co_old, co_new, blk)
-    st_p, out = K.step_packed_crossfade(st_p, pk_old, pk_new, blk, interpret=True)
+    st_p, out = K.step_packed_crossfade(st_p, pk_old, pk_new, blk)
     np.testing.assert_allclose(np.asarray(out), np.asarray(ref), atol=1e-5)
     blk = x[:, 384:]
     st_c, ref = cv.step(st_c, co_new, blk)
-    st_p, out = K.step_packed(st_p, pk_new, blk, interpret=True)
+    st_p, out = K.step_packed(st_p, pk_new, blk)
     np.testing.assert_allclose(np.asarray(out), np.asarray(ref), atol=1e-5)
 
 

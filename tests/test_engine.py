@@ -390,7 +390,7 @@ def test_engine_mode_validation():
 
 def test_session_nu_tail_store_reachable(cache, tmp_path):
     """EngineConfig.nu_tail_store="bfloat16" must reach the nonuniform
-    engine's geometry (VERDICT r2 weak #5: the option existed but no user
+    engine's geometry (the option existed but no user
     could turn it on) and stream within its documented precision class
     (~56 dB + tail energy deficit; self-check gate relaxed to 35 dB)."""
     import dataclasses
@@ -414,7 +414,7 @@ def test_session_nu_tail_store_reachable(cache, tmp_path):
     ref = np.stack([signal.fftconvolve(x[c], h[c])[: y.shape[1]] for c in range(2)])
     err = np.abs(y - ref)
     snr = 10 * np.log10(float((ref**2).sum()) / float((err**2).sum()))
-    # pin the BAND, not just the floor (VERDICT r3 weak #5): the bf16 tail's
+    # pin the BAND, not just the floor: the bf16 tail's
     # documented class is ~56 dB + tail energy deficit. Below 50 means the
     # implementation degraded toward the relaxed 35 dB self-check gate
     # (where a real miscompile could hide); above 100 means the bf16 store
@@ -490,8 +490,8 @@ def test_composition_equals_blockwise_streaming_method():
 
 def test_selfcheck_verdict_cache(cache, tmp_path, monkeypatch):
     """A second session build with identical (backend, source, geometry,
-    coefficients) must skip the known-answer run entirely (VERDICT r2 weak
-    #6: the nonuniform check cost ~104 s of TPU time per session init)."""
+    coefficients) must skip the known-answer run entirely (the nonuniform
+    check streams 32 blocks per session init)."""
     import dataclasses
     import os
 
@@ -534,13 +534,14 @@ def test_selfcheck_verdict_cache(cache, tmp_path, monkeypatch):
 
 
 def test_auto_mode_prefers_nonuniform_for_long_filters(monkeypatch, tmp_path):
-    """On non-CPU backends auto mode must pick the two-stage engine above
-    the partition threshold (VERDICT r2 next #4) and hc below it."""
+    """On an accelerator (the backend mocked as the GPU) auto mode must
+    pick the two-stage engine above the partition threshold and hc below
+    it; on the CPU the complex engine."""
     import jax as _jax
 
     cfg = make_config(tmp_path, dtype="float32")
     sp = StreamProcessor(cfg, ArtifactCache(str(tmp_path / "p")))
-    monkeypatch.setattr(_jax, "default_backend", lambda: "tpu")
+    monkeypatch.setattr(_jax, "default_backend", lambda: "gpu")
     sp.n_partitions = 128
     assert sp._resolve_engine_mode() == "nonuniform"
     sp.n_partitions = 8
@@ -622,7 +623,7 @@ def test_auto_mode_prefers_nonuniform3_for_very_long_filters(monkeypatch, tmp_pa
 
     cfg = make_config(tmp_path, dtype="float32")
     sp = StreamProcessor(cfg, ArtifactCache(str(tmp_path / "p3")))
-    monkeypatch.setattr(_jax, "default_backend", lambda: "tpu")
+    monkeypatch.setattr(_jax, "default_backend", lambda: "gpu")
     sp.n_partitions = 640
     assert sp._resolve_engine_mode() == "nonuniform3"
     sp.n_partitions = 512
@@ -630,7 +631,7 @@ def test_auto_mode_prefers_nonuniform3_for_very_long_filters(monkeypatch, tmp_pa
 
 
 def test_pipelined_nan_abort_loses_no_samples(cache, tmp_path):
-    """ADVICE r3: a NaN abort inside the pipelined drain must pass the
+    """A NaN abort inside the pipelined drain must pass the
     offending block AND every later already-dispatched block through
     (reference semantics, brutefir.cpp:313-321) — no input samples vanish."""
     h = np.zeros((2, 10))
@@ -650,8 +651,8 @@ def test_pipelined_nan_abort_loses_no_samples(cache, tmp_path):
 
 
 def test_session_nonuniform3_reconfigure_crossfade(cache, tmp_path):
-    """Live filter change on the three-stage engine is glitch-free (VERDICT
-    r3 next #4): the session drives the staged transition (outer head ramp
+    """Live filter change on the three-stage engine is glitch-free: the
+    session drives the staged transition (outer head ramp
     -> inner ramp -> far bridging) and converges to the new filter, with no
     full rebuild (state and warm history preserved)."""
     import dataclasses
@@ -698,7 +699,7 @@ def test_session_nonuniform3_reconfigure_crossfade(cache, tmp_path):
     assert snr > 100, snr
 
 
-# -- per-channel output delay on the config surface (VERDICT r3 next #7) ----
+# -- per-channel output delay on the config surface -----------------------
 
 
 def test_session_per_channel_integer_delay(cache, tmp_path):
@@ -795,7 +796,7 @@ def test_delay_live_value_change_and_spec_validation(cache, tmp_path):
 def test_session_shared_coeffs_for_identical_channels(cache, tmp_path):
     """A chain whose channels share one filter (e.g. mono impulse broadcast,
     EQ-only chains) builds SHARED coefficient planes — [P, 2, Hp] instead of
-    [P, 2C, Hp], 1/C the coefficient HBM traffic — and streams identically."""
+    [P, 2C, Hp], 1/C the coefficient memory traffic — and streams identically."""
     import dataclasses
 
     rng = np.random.default_rng(97)
@@ -848,18 +849,16 @@ def test_session_shared_coeffs_nonuniform(cache, tmp_path):
 
 
 def test_nu_tail_store_auto_resolution(cache, tmp_path, monkeypatch):
-    """nu_tail_store="auto": int24 for the single-chip nonuniform engine on
-    accelerators (TPU-measured faster at >=125 dB, r5), float32 on CPU and
-    for the sharded/nu3 engines."""
-    import jax as _jax
-
+    """nu_tail_store="auto" resolves through utils.platform: float32 on
+    the CPU; on the GPU int24 for the single-device two-stage engine
+    (measured faster there) and float32 for every other engine."""
     from bfir_tpu.engine import session as S
 
     cfg = make_config(tmp_path)
     sp = StreamProcessor(cfg, cache)
     assert sp.config.nu_tail_store == "auto"
     assert sp._resolve_nu_tail_store("nonuniform") == "float32"  # CPU
-    monkeypatch.setattr(S.jax, "default_backend", lambda: "tpu")
+    monkeypatch.setattr(S.jax, "default_backend", lambda: "gpu")
     assert sp._resolve_nu_tail_store("nonuniform") == "int24"
     assert sp._resolve_nu_tail_store("sharded") == "float32"
     assert sp._resolve_nu_tail_store("nonuniform3") == "float32"

@@ -33,7 +33,7 @@ def test_step_df_beats_f32_by_30db():
     c32 = K.hc_coeffs(h.astype(np.float32), spec, c)
     outs32 = []
     for b in range(6):
-        s32, o = K.step_hc(s32, c32, x[:, b * n:(b + 1) * n], use_pallas=False)
+        s32, o = K.step_hc(s32, c32, x[:, b * n:(b + 1) * n])
         outs32.append(np.asarray(o, np.float64))
     snr32 = snr_db(np.concatenate(outs32, 1), ref)
 

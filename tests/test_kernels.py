@@ -1,5 +1,6 @@
-"""Pallas spectrum-MAC kernel (interpret mode on CPU) vs jnp reference and
-the complex-dtype convolver path."""
+"""Spectrum MACs and the streaming steps built on them, against float64
+numpy literals of the same law, scipy, and the complex-dtype convolver
+path."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -27,39 +28,68 @@ def test_mac_reference_matches_complex():
         np.testing.assert_allclose(np.asarray(yi), ref.imag, atol=1e-12)
 
 
+def _mac_f64(ring, coeff, pos, halfcomplex):
+    """float64 numpy literal of the partition MAC law:
+    y = sum_p coeff[p] * ring[(pos - p) mod P] on packed [P, 2C, F] planes
+    (coeff may be [P, 2, F]: one filter for every channel). Halfcomplex
+    planes carry (DC.re, Nyquist.re) in lane 0, whose product is two real
+    multiplies."""
+    ring = np.asarray(ring, np.float64)
+    coeff = np.asarray(coeff, np.float64)
+    p, c2, _ = ring.shape
+    c, cs = c2 // 2, coeff.shape[1] // 2
+    idx = (pos - np.arange(p)) % p
+    rr, ri = ring[idx, :c], ring[idx, c:]
+    cr, ci = coeff[:, :cs], coeff[:, cs:]
+    yr = (cr * rr - ci * ri).sum(axis=0)
+    yi = (cr * ri + ci * rr).sum(axis=0)
+    if halfcomplex:
+        yr[..., 0] = (cr[..., 0] * rr[..., 0]).sum(axis=0)
+        yi[..., 0] = (ci[..., 0] * ri[..., 0]).sum(axis=0)
+    return yr, yi
+
+
+# f32 products summed over P partitions: each term carries <= 1 ulp of its
+# magnitude, so the sum's error is bounded by ~P * eps32 * max|term|
+def _mac_tol(ring, coeff, p):
+    return 4 * p * np.finfo(np.float32).eps * float(
+        np.abs(ring).max() * np.abs(coeff).max())
+
+
 @pytest.mark.parametrize("pos", [0, 3, 7])
-def test_mac_pallas_interpret_matches_reference(pos):
+def test_mac_reference_matches_numpy_f64(pos):
     rng = np.random.default_rng(1)
     p, c, fp = 8, 8, 128
-    rr = rng.standard_normal((p, c, fp)).astype(np.float32)
-    ri = rng.standard_normal((p, c, fp)).astype(np.float32)
-    cr = rng.standard_normal((p, c, fp)).astype(np.float32)
-    ci = rng.standard_normal((p, c, fp)).astype(np.float32)
-    import jax.numpy as jnp
-
-    yr, yi = K.mac_pallas(rr, ri, cr, ci, jnp.int32(pos), interpret=True)
-    yr2, yi2 = K.mac_reference(rr, ri, cr, ci, jnp.int32(pos))
-    np.testing.assert_allclose(np.asarray(yr), np.asarray(yr2), atol=1e-4)
-    np.testing.assert_allclose(np.asarray(yi), np.asarray(yi2), atol=1e-4)
+    ring = rng.standard_normal((p, 2 * c, fp)).astype(np.float32)
+    coef = rng.standard_normal((p, 2 * c, fp)).astype(np.float32)
+    yr, yi = K.mac_reference(ring[:, :c], ring[:, c:], coef[:, :c],
+                             coef[:, c:], jnp.int32(pos))
+    er, ei = _mac_f64(ring, coef, pos, halfcomplex=False)
+    tol = _mac_tol(ring, coef, p)
+    np.testing.assert_allclose(np.asarray(yr), er, atol=tol)
+    np.testing.assert_allclose(np.asarray(yi), ei, atol=tol)
 
 
-@pytest.mark.parametrize("use_pallas", [False, True])
-def test_step_split_matches_scipy(use_pallas):
+@pytest.mark.parametrize("shared", [False, True])
+def test_step_split_matches_scipy(shared):
+    """Per-channel coefficients and one filter broadcast to every channel."""
+    coeff_channels = 1 if shared else 2
     rng = np.random.default_rng(2)
     spec = FilterSpec(block_length=128, n_partitions=4, dtype="float64")
     c = 2
-    h = rng.standard_normal(450) * 0.1
+    h = rng.standard_normal((coeff_channels, 450)) * 0.1
     x = rng.standard_normal((c, 128 * 8))
 
     state = K.init_split_state(spec, c)
     cr, ci = K.split_coeffs(h, spec)
+    assert cr.shape[1] == coeff_channels
     outs = []
     for b in range(8):
-        state, o = K.step_split(state, cr, ci, x[:, b * 128 : (b + 1) * 128],
-                                use_pallas=use_pallas, interpret=True)
+        state, o = K.step_split(state, cr, ci, x[:, b * 128 : (b + 1) * 128])
         outs.append(np.asarray(o))
     y = np.concatenate(outs, axis=1)
-    ref = np.stack([signal.fftconvolve(x[i], h)[: x.shape[-1]] for i in range(c)])
+    ref = np.stack([signal.fftconvolve(x[i], h[i % coeff_channels])
+                    [: x.shape[-1]] for i in range(c)])
     np.testing.assert_allclose(y, ref, atol=1e-9)
 
 
@@ -105,8 +135,8 @@ def test_step_packed_matches_split(blocks):
 
     for b in range(blocks):
         blk = x[:, b * 128 : (b + 1) * 128]
-        s1, o1 = K.step_split(s1, cr, ci, blk, use_pallas=False)
-        s2, o2 = K.step_packed(s2, cpk, blk, interpret=True)
+        s1, o1 = K.step_split(s1, cr, ci, blk)
+        s2, o2 = K.step_packed(s2, cpk, blk)
         np.testing.assert_allclose(np.asarray(o1), np.asarray(o2), atol=1e-10)
 
 
@@ -125,8 +155,8 @@ def test_step_chunked_matches_split(k):
 
     for b in range(7):
         blk = x[:, b * 128 : (b + 1) * 128]
-        s1, o1 = K.step_split(s1, cr, ci, blk, use_pallas=False)
-        s3, o3 = K.step_chunked(s3, crk, blk, k=k, interpret=True)
+        s1, o1 = K.step_split(s1, cr, ci, blk)
+        s3, o3 = K.step_chunked(s3, crk, blk, k=k)
         np.testing.assert_allclose(np.asarray(o1), np.asarray(o3), atol=1e-10,
                                    err_msg=f"block {b} k={k}")
 
@@ -154,8 +184,6 @@ def test_rfft_irfft_split_hc_roundtrip():
         back = F.irfft_split_hc(hr, hi, n=2048)
         np.testing.assert_allclose(np.asarray(back), x, atol=1e-10)
         # padded planes accepted (engine stores lane-rounded arrays)
-        import jax.numpy as jnp
-
         back2 = F.irfft_split_hc(jnp.pad(hr, ((0, 0), (0, 64))),
                                  jnp.pad(hi, ((0, 0), (0, 64))), n=2048)
         np.testing.assert_allclose(np.asarray(back2), x, atol=1e-10)
@@ -172,92 +200,95 @@ def test_irfft_hc_tail_matches_full():
         tail = np.asarray(F.irfft_hc_tail(hr, hi, n=m))
         np.testing.assert_allclose(tail, full[..., m // 2:], atol=1e-10)
     # lane-padded input accepted
-    import jax.numpy as jnp
-
     t2 = np.asarray(F.irfft_hc_tail(jnp.pad(hr, ((0, 0), (0, 64))),
                                     jnp.pad(hi, ((0, 0), (0, 64))), n=2048))
     np.testing.assert_allclose(t2, tail, atol=1e-12)
 
 
 @pytest.mark.parametrize("pos", [0, 3, 7])
-def test_mac_pallas_hc_interpret_matches_reference(pos):
+def test_mac_hc_matches_numpy_f64(pos):
     rng = np.random.default_rng(10)
     p, c, hp = 8, 4, 128
     ring = rng.standard_normal((p, 2 * c, hp)).astype(np.float32)
     coef = rng.standard_normal((p, 2 * c, hp)).astype(np.float32)
-    import jax.numpy as jnp
-
-    yr, yi = K.mac_pallas_hc(ring, coef, jnp.int32(pos), interpret=True)
-    yr2, yi2 = K.mac_reference_hc(ring[:, :c], ring[:, c:],
-                                  coef[:, :c], coef[:, c:], jnp.int32(pos))
-    np.testing.assert_allclose(np.asarray(yr), np.asarray(yr2), atol=1e-4)
-    np.testing.assert_allclose(np.asarray(yi), np.asarray(yi2), atol=1e-4)
+    yr, yi = K.mac_hc(jnp.asarray(ring), jnp.asarray(coef), jnp.int32(pos))
+    er, ei = _mac_f64(ring, coef, pos, halfcomplex=True)
+    tol = _mac_tol(ring, coef, p)
+    np.testing.assert_allclose(np.asarray(yr), er, atol=tol)
+    np.testing.assert_allclose(np.asarray(yi), ei, atol=tol)
 
 
-@pytest.mark.parametrize("use_pallas", [False, True])
-def test_step_hc_matches_split_and_scipy(use_pallas):
+@pytest.mark.parametrize("shared", [False, True])
+def test_step_hc_matches_split_and_scipy(shared):
     rng = np.random.default_rng(11)
     spec = FilterSpec(block_length=128, n_partitions=4, dtype="float64")
     c = 2
-    h = rng.standard_normal((c, 450)) * 0.1
+    h = rng.standard_normal((1 if shared else c, 450)) * 0.1
     x = rng.standard_normal((c, 128 * 8))
 
     s1 = K.init_split_state(spec, c)
     cr, ci = K.split_coeffs(h, spec)
     s2 = K.init_hc_state(spec, c)
-    chc = K.hc_coeffs(h, spec, c)
-    assert chc.shape == (4, 2 * c, 128)  # n_fft//2 = 128: no pad at all
+    chc = K.hc_coeffs(h, spec, c, shared=shared)
+    # n_fft//2 = 128: no pad at all; shared planes carry one channel
+    assert chc.shape == (4, 2 if shared else 2 * c, 128)
 
     outs = []
     for b in range(8):
         blk = x[:, b * 128 : (b + 1) * 128]
-        s1, o1 = K.step_split(s1, cr, ci, blk, use_pallas=False)
-        s2, o2 = K.step_hc(s2, chc, blk, use_pallas=use_pallas, interpret=True)
+        s1, o1 = K.step_split(s1, cr, ci, blk)
+        s2, o2 = K.step_hc(s2, chc, blk)
         np.testing.assert_allclose(np.asarray(o2), np.asarray(o1), atol=1e-10)
         outs.append(np.asarray(o2))
     y = np.concatenate(outs, axis=1)
-    ref = np.stack([signal.fftconvolve(x[i], h[i])[: x.shape[-1]] for i in range(c)])
+    ref = np.stack([signal.fftconvolve(x[i], h[0 if shared else i])
+                    [: x.shape[-1]] for i in range(c)])
     np.testing.assert_allclose(y, ref, atol=1e-9)
 
 
-@pytest.mark.parametrize("blocklen", [128, 64])
-def test_step_hc2_matches_step_hc(blocklen):
+# stored forms of the MAC planes, with each form's distance from the f32
+# result in units of the f32 bound _mac_tol: bfloat16 keeps 8 mantissa
+# bits (2^-8 relative per plane); int16/int24 quantize each row to 15/23
+# bits of its row maximum.
+_STORES = {"float32": 1.0, "bfloat16": 2.0 ** 16, "int24": 64.0,
+           "int16": 2.0 ** 14}
+
+
+@pytest.mark.parametrize("store", list(_STORES))
+def test_mac_hc_stored_forms_match_numpy(store):
+    """``mac_hc`` decodes every stored plane form to f32 and matches the
+    float64 law evaluated on the decoded planes (distinct and shared
+    coefficient layouts both)."""
     rng = np.random.default_rng(19)
-    spec = FilterSpec(block_length=blocklen, n_partitions=4, dtype="float64")
-    c = 2
-    h = rng.standard_normal((c, 3 * blocklen)) * 0.1
-    x = rng.standard_normal((c, blocklen * 6))
-
-    s1 = K.init_hc_state(spec, c)
-    s2 = K.init_hc_state(spec, c)
-    chc = K.hc_coeffs(h, spec, c)
-    for b in range(6):
-        blk = x[:, b * blocklen : (b + 1) * blocklen]
-        s1, o1 = K.step_hc(s1, chc, blk, use_pallas=False)
-        s2, o2 = K.step_hc2(s2, chc, blk, interpret=True)
-        np.testing.assert_allclose(np.asarray(o2), np.asarray(o1), atol=1e-10,
-                                   err_msg=f"block {b}")
-        np.testing.assert_allclose(np.asarray(s2.ring), np.asarray(s1.ring),
-                                   atol=1e-12, err_msg=f"ring after block {b}")
-
-
-@pytest.mark.parametrize("blocklen", [128, 64])  # 64: hp (128) > h (64)
-def test_step_hc_fused_matches_step_hc(blocklen):
-    rng = np.random.default_rng(17)
-    spec = FilterSpec(block_length=blocklen, n_partitions=4, dtype="float64")
-    c = 2
-    h = rng.standard_normal((c, 3 * blocklen)) * 0.1
-    x = rng.standard_normal((c, blocklen * 6))
-
-    s1 = K.init_hc_state(spec, c)
-    s2 = K.init_hc_state(spec, c)
-    chc = K.hc_coeffs(h, spec, c)
-    for b in range(6):
-        blk = x[:, b * blocklen : (b + 1) * blocklen]
-        s1, o1 = K.step_hc(s1, chc, blk, use_pallas=False)
-        s2, o2 = K.step_hc_fused(s2, chc, blk, interpret=True)
-        np.testing.assert_allclose(np.asarray(o2), np.asarray(o1), atol=1e-10,
-                                   err_msg=f"block {b}")
+    p, c, hp = 6, 3, 256
+    ring = rng.standard_normal((p, 2 * c, hp)).astype(np.float32)
+    pos = 4
+    for coef in (rng.standard_normal((p, 2 * c, hp)).astype(np.float32),
+                 rng.standard_normal((p, 2, hp)).astype(np.float32)):
+        if store == "bfloat16":
+            r_st = jnp.asarray(ring).astype(jnp.bfloat16)
+            c_st = jnp.asarray(coef).astype(jnp.bfloat16)
+            r_dec, c_dec = r_st.astype(jnp.float32), c_st.astype(jnp.float32)
+        elif store in ("int16", "int24"):
+            bits = int(store[3:])
+            r_st = K.quantize_planes(jnp.asarray(ring), bits)
+            c_st = K.quantize_planes(jnp.asarray(coef), bits)
+            r_dec = K.dequantize_planes(r_st)
+            c_dec = K.dequantize_planes(c_st)
+        else:
+            r_st = r_dec = jnp.asarray(ring)
+            c_st = c_dec = jnp.asarray(coef)
+        yr, yi = K.mac_hc(r_st, c_st, jnp.int32(pos))
+        er, ei = _mac_f64(r_dec, c_dec, pos, halfcomplex=True)
+        tol = _mac_tol(ring, coef, p)  # the decode itself is exact in f32
+        np.testing.assert_allclose(np.asarray(yr), er, atol=tol)
+        np.testing.assert_allclose(np.asarray(yi), ei, atol=tol)
+        # and the stored form stays within its storage precision of f32
+        fr, fi = _mac_f64(ring, coef, pos, halfcomplex=True)
+        np.testing.assert_allclose(np.asarray(yr), fr,
+                                   atol=tol * _STORES[store])
+        np.testing.assert_allclose(np.asarray(yi), fi,
+                                   atol=tol * _STORES[store])
 
 
 def test_step_hc_crossfade_matches_packed():
@@ -277,88 +308,51 @@ def test_step_hc_crossfade_matches_packed():
 
     for b in range(3):
         blk = x[:, b * 128 : (b + 1) * 128]
-        sp, op = K.step_packed(sp, pk_old, blk, interpret=True)
-        sh, oh = K.step_hc(sh, hc_old, blk, interpret=True)
+        sp, op = K.step_packed(sp, pk_old, blk)
+        sh, oh = K.step_hc(sh, hc_old, blk)
         np.testing.assert_allclose(np.asarray(oh), np.asarray(op), atol=1e-10)
     blk = x[:, 3 * 128 : 4 * 128]
-    sp, op = K.step_packed_crossfade(sp, pk_old, pk_new, blk, interpret=True)
-    sh, oh = K.step_hc_crossfade(sh, hc_old, hc_new, blk, interpret=True)
+    sp, op = K.step_packed_crossfade(sp, pk_old, pk_new, blk)
+    sh, oh = K.step_hc_crossfade(sh, hc_old, hc_new, blk)
     np.testing.assert_allclose(np.asarray(oh), np.asarray(op), atol=1e-10)
     blk = x[:, 4 * 128 : 5 * 128]
-    sp, op = K.step_packed(sp, pk_new, blk, interpret=True)
-    sh, oh = K.step_hc(sh, hc_new, blk, interpret=True)
+    sp, op = K.step_packed(sp, pk_new, blk)
+    sh, oh = K.step_hc(sh, hc_new, blk)
     np.testing.assert_allclose(np.asarray(oh), np.asarray(op), atol=1e-10)
 
 
-def test_dither_pallas_matches_scan():
-    from bfir_tpu.ops import dither as dth
-
-    rng = np.random.default_rng(12)
-    c, n = 2, 512
-    x = rng.uniform(-30000, 30000, (c, n))
-    x[0, 5] = 40000.0  # force a clip
-    st = dth.init_dither_state(c, seed=3, dtype=np.float64)
-    of = dth.init_overflow_stats(c, dtype=np.float64)
-    q1, st1, of1 = dth.quantize_hp_tpdf(x, -32768, 32767, st, of)
-    q2, st2, of2 = dth.quantize_hp_tpdf(x, -32768, 32767, st, of,
-                                        use_pallas=True, interpret=True)
-    np.testing.assert_array_equal(np.asarray(q1), np.asarray(q2))
-    np.testing.assert_allclose(np.asarray(st1.e0), np.asarray(st2.e0), atol=1e-12)
-    np.testing.assert_allclose(np.asarray(st1.e1), np.asarray(st2.e1), atol=1e-12)
-    np.testing.assert_array_equal(np.asarray(of1.n_overflows), np.asarray(of2.n_overflows))
-    np.testing.assert_allclose(np.asarray(of1.largest), np.asarray(of2.largest))
-    np.testing.assert_array_equal(np.asarray(of1.intlargest), np.asarray(of2.intlargest))
+# -- overlap-save tail and the convolution law through the transforms ------
 
 
-# -- partial-fusion transforms (kernels/fft_fused.py, VERDICT r3 next #3) ---
-
-
-def test_rfft_hc_fused_matches_ops_fft():
-    """Interpret-mode parity of the partial-fusion forward transform vs the
-    production XLA formulation (identical hc layout, fp-level agreement)."""
-    from bfir_tpu.kernels import fft_fused as FF
-    from bfir_tpu.ops import fft as F
-
-    rng = np.random.default_rng(90)
-    for rows, m in ((64, 2048), (8, 4096)):
-        x = rng.standard_normal((rows, m)).astype(np.float32)
-        hr, hi = FF.rfft_hc_fused(jnp.asarray(x), interpret=True)
-        rr, ri = F.rfft_split_hc(jnp.asarray(x))
-        scale = float(np.max(np.abs(np.asarray(rr))))
-        np.testing.assert_allclose(np.asarray(hr), np.asarray(rr),
-                                   atol=1e-3 * scale)
-        np.testing.assert_allclose(np.asarray(hi), np.asarray(ri),
-                                   atol=1e-3 * scale)
-    with pytest.raises(ValueError, match="pow2"):
-        FF.rfft_hc_fused(jnp.zeros((4, 512)), interpret=True)
-
-
-def test_irfft_hc_tail_fused_matches_ops_fft():
-    """The DIF-form fused inverse tail == ops.fft.irfft_hc_tail (the
-    overlap-save tail the hc engine renders every block)."""
-    from bfir_tpu.kernels import fft_fused as FF
-    from bfir_tpu.ops import fft as F
-
+@pytest.mark.parametrize("mode", ["xla", "matmul"])
+@pytest.mark.parametrize("m", [2048, 4096])
+def test_irfft_hc_tail_matches_numpy_f64(mode, m):
+    """Both FFT providers' overlap-save tail == the upper half of numpy's
+    float64 inverse, at float32. Error bound: ~eps32 * log2(m) of the
+    output scale (an FFT's rounding growth; the matmul DFT at HIGHEST
+    precision is no worse)."""
     rng = np.random.default_rng(91)
-    m = 4096
     yr = rng.standard_normal((16, m // 2)).astype(np.float32)
     yi = rng.standard_normal((16, m // 2)).astype(np.float32)
-    t1 = FF.irfft_hc_tail_fused(jnp.asarray(yr), jnp.asarray(yi), n=m,
-                                interpret=True)
-    t2 = F.irfft_hc_tail(jnp.asarray(yr), jnp.asarray(yi), n=m)
-    sc = float(np.max(np.abs(np.asarray(t2))))
-    np.testing.assert_allclose(np.asarray(t1), np.asarray(t2), atol=1e-3 * sc)
+    full = (np.concatenate([yr, yi[:, :1]], axis=1).astype(np.float64)
+            + 1j * np.concatenate([np.zeros((16, 1)), yi[:, 1:],
+                                   np.zeros((16, 1))], axis=1))
+    ref = np.fft.irfft(full, n=m, axis=-1)[:, m // 2:]
+    F.set_mode(mode)
+    try:
+        out = np.asarray(F.irfft_hc_tail(jnp.asarray(yr), jnp.asarray(yi),
+                                         n=m))
+    finally:
+        F.set_mode("auto")
+    scale = np.abs(ref).max()
+    np.testing.assert_allclose(out, ref, atol=8 * np.log2(m)
+                               * np.finfo(np.float32).eps * scale)
 
 
-def test_fused_roundtrip_convolution_law():
-    """End-to-end law: rfft_hc_fused -> elementwise hc product -> fused
-    tail == the valid block of a linear convolution (the step_hc data
-    path with both transforms swapped for the fused kernels)."""
-    from scipy import signal
-
-    from bfir_tpu.kernels import fft_fused as FF
-    from bfir_tpu.kernels.spectrum_mac import mac_reference_hc
-
+def test_hc_roundtrip_convolution_law():
+    """End-to-end law: rfft_split_hc -> halfcomplex MAC (one partition) ->
+    irfft_hc_tail == the valid block of a linear convolution (the step_hc
+    data path)."""
     rng = np.random.default_rng(92)
     n = 2048
     m = 2 * n
@@ -367,12 +361,11 @@ def test_fused_roundtrip_convolution_law():
     prev = rng.standard_normal((c, n)).astype(np.float32)
     blk = rng.standard_normal((c, n)).astype(np.float32)
     frame = np.concatenate([prev, blk], axis=1)
-    hr, hi = FF.rfft_hc_fused(jnp.asarray(frame), interpret=True)
-    cr, ci = FF.rfft_hc_fused(jnp.asarray(np.pad(h, ((0, 0), (0, n)))),
-                              interpret=True)
-    yr, yi = mac_reference_hc(hr[None], hi[None], cr[None], ci[None],
-                              jnp.zeros((), jnp.int32))
-    out = FF.irfft_hc_tail_fused(yr, yi, n=m, interpret=True)
+    hr, hi = F.rfft_split_hc(jnp.asarray(frame))
+    cr, ci = F.rfft_split_hc(jnp.asarray(np.pad(h, ((0, 0), (0, n)))))
+    yr, yi = K.mac_reference_hc(hr[None], hi[None], cr[None], ci[None],
+                                jnp.zeros((), jnp.int32))
+    out = F.irfft_hc_tail(yr, yi, n=m)
     ref = np.stack([signal.fftconvolve(frame[ch].astype(np.float64),
                                        h[ch].astype(np.float64))[n: 2 * n]
                     for ch in range(c)])
@@ -385,7 +378,8 @@ def test_fused_roundtrip_convolution_law():
 
 def test_mac_shared_coeffs_match_broadcast():
     """coeff [P, 2, Hp] (shared) == coeff [P, 2C, Hp] (broadcast) through
-    every MAC formulation: reference, untiled kernel, tiled kernel."""
+    every MAC form: the split-plane reference, the packed ``mac_hc``, the
+    banded MAC and the int-stored MAC."""
     rng = np.random.default_rng(95)
     p, c, hp = 4, 6, 256
     ring = jnp.asarray(rng.standard_normal((p, 2 * c, hp)).astype(np.float32))
@@ -403,16 +397,20 @@ def test_mac_shared_coeffs_match_broadcast():
                                atol=1e-5)
     np.testing.assert_allclose(np.asarray(r_sh[1]), np.asarray(r_ref[1]),
                                atol=1e-5)
-    k_b = K.mac_pallas_hc(ring, jnp.asarray(cob), pos, interpret=True)
-    k_s = K.mac_pallas_hc(ring, jnp.asarray(co1), pos, interpret=True)
+    k_b = K.mac_hc(ring, jnp.asarray(cob), pos)
+    k_s = K.mac_hc(ring, jnp.asarray(co1), pos)
     np.testing.assert_allclose(np.asarray(k_s[0]), np.asarray(k_b[0]), atol=1e-5)
     np.testing.assert_allclose(np.asarray(k_s[1]), np.asarray(k_b[1]), atol=1e-5)
-    t_b = K.mac_pallas_hc_tiled(ring, jnp.asarray(cob), pos, tile=128,
-                                interpret=True)
-    t_s = K.mac_pallas_hc_tiled(ring, jnp.asarray(co1), pos, tile=128,
-                                interpret=True)
+    t_b = K.mac_reference_hc_band(ring, jnp.asarray(cob), pos, 128, 128)
+    t_s = K.mac_reference_hc_band(ring, jnp.asarray(co1), pos, 128, 128)
     np.testing.assert_allclose(np.asarray(t_s[0]), np.asarray(t_b[0]), atol=1e-5)
     np.testing.assert_allclose(np.asarray(t_s[1]), np.asarray(t_b[1]), atol=1e-5)
+    q_b = K.mac_hc(K.quantize_planes(ring, 24),
+                   K.quantize_planes(jnp.asarray(cob), 24), pos)
+    q_s = K.mac_hc(K.quantize_planes(ring, 24),
+                   K.quantize_planes(jnp.asarray(co1), 24), pos)
+    np.testing.assert_allclose(np.asarray(q_s[0]), np.asarray(q_b[0]), atol=1e-5)
+    np.testing.assert_allclose(np.asarray(q_s[1]), np.asarray(q_b[1]), atol=1e-5)
 
 
 def test_step_hc_with_shared_coeffs():
@@ -429,7 +427,7 @@ def test_step_hc_with_shared_coeffs():
     x = rng.standard_normal((c, 64 * 8)).astype(np.float32)
     outs = []
     for b in range(8):
-        st, o = K.step_hc(st, co, x[:, b * 64:(b + 1) * 64], use_pallas=False)
+        st, o = K.step_hc(st, co, x[:, b * 64:(b + 1) * 64])
         outs.append(np.asarray(o))
     y = np.concatenate(outs, axis=1)
     ref = np.stack([signal.fftconvolve(x[ch].astype(np.float64),

@@ -1,6 +1,6 @@
 """Two-stage non-uniform partitioned convolution (core/nonuniform.py):
 scipy oracle, uniform-engine equivalence, state-carry/checkpoint property,
-tiled-MAC kernel parity, geometry validation."""
+banded-MAC parity, geometry validation."""
 
 import numpy as np
 import pytest
@@ -30,14 +30,21 @@ def _scipy_ref(h, x, nsamp):
     )
 
 
-@pytest.mark.parametrize("use_pallas", [False, True])
-def test_nu_matches_scipy(use_pallas):
+@pytest.mark.parametrize("matmul_fft", [False, True])
+def test_nu_matches_scipy(matmul_fft):
+    """Both FFT providers (the native FFT and the matmul DFTs)."""
+    from bfir_tpu.ops import fft as F
+
     rng = np.random.default_rng(0)
     spec = NU.NuSpec(block_length=8, ratio=2, p_head=4, p_tail=3)
     c = 2
     h = rng.standard_normal((c, spec.max_taps)).astype(np.float32)
     x = rng.standard_normal((c, 30 * spec.block_length)).astype(np.float32)
-    _, y = _run_nu(spec, h, x, use_pallas=use_pallas, interpret=use_pallas)
+    F.set_mode("matmul" if matmul_fft else "xla")
+    try:
+        _, y = _run_nu(spec, h, x)
+    finally:
+        F.set_mode("auto")
     ref = _scipy_ref(h, x, y.shape[1])
     err = np.abs(y - ref).max() / np.abs(ref).max()
     assert err < 1e-5, err
@@ -51,7 +58,7 @@ def test_nu_partial_taps_and_ratio4():
     taps = spec.max_taps - spec.m - 3  # ends mid tail partition
     h = rng.standard_normal((c, taps)).astype(np.float32)
     x = rng.standard_normal((c, 64 * spec.block_length)).astype(np.float32)
-    _, y = _run_nu(spec, h, x, use_pallas=False)
+    _, y = _run_nu(spec, h, x)
     ref = _scipy_ref(h, x, y.shape[1])
     err = np.abs(y - ref).max() / np.abs(ref).max()
     assert err < 1e-5, err
@@ -64,7 +71,7 @@ def test_nu_head_only_taps():
     c = 2
     h = rng.standard_normal((c, 3 * spec.block_length)).astype(np.float32)
     x = rng.standard_normal((c, 20 * spec.block_length)).astype(np.float32)
-    _, y = _run_nu(spec, h, x, use_pallas=False)
+    _, y = _run_nu(spec, h, x)
     ref = _scipy_ref(h, x, y.shape[1])
     err = np.abs(y - ref).max() / np.abs(ref).max()
     assert err < 1e-5, err
@@ -77,7 +84,7 @@ def test_nu_matches_uniform_engine():
     c = 2
     h = rng.standard_normal((c, spec.max_taps)).astype(np.float32)
     x = rng.standard_normal((c, 24 * spec.block_length)).astype(np.float32)
-    _, y = _run_nu(spec, h, x, use_pallas=False)
+    _, y = _run_nu(spec, h, x)
 
     uspec = FilterSpec(spec.block_length, spec.max_taps // spec.block_length)
     ucoef = K.hc_coeffs(h, uspec, c)
@@ -85,7 +92,7 @@ def test_nu_matches_uniform_engine():
     blocks = jnp.asarray(x.reshape(c, -1, spec.block_length).transpose(1, 0, 2))
 
     def body(st, blk):
-        st, out = K.step_hc(st, ucoef, blk, use_pallas=False)
+        st, out = K.step_hc(st, ucoef, blk)
         return st, out
 
     _, uout = jax.lax.scan(body, ust, blocks)
@@ -106,26 +113,28 @@ def test_nu_state_carry_equals_one_shot():
     blocks = jnp.asarray(x.reshape(c, -1, n).transpose(1, 0, 2))
 
     st = NU.init_nu_state(spec, c)
-    _, one = NU.process_blocks_nu(st, coeffs, blocks, use_pallas=False)
+    _, one = NU.process_blocks_nu(st, coeffs, blocks)
 
     st = NU.init_nu_state(spec, c)
-    st, a = NU.process_blocks_nu(st, coeffs, blocks[:7], use_pallas=False)
-    st, b = NU.process_blocks_nu(st, coeffs, blocks[7:], use_pallas=False)
+    st, a = NU.process_blocks_nu(st, coeffs, blocks[:7])
+    st, b = NU.process_blocks_nu(st, coeffs, blocks[7:])
     two = jnp.concatenate([a, b], axis=0)
     np.testing.assert_array_equal(np.asarray(one), np.asarray(two))
 
 
-def test_mac_pallas_hc_tiled_matches_reference():
-    """Freq-tiled MAC == untiled reference, tile < Hp (multi-tile grid)."""
+def test_mac_hc_band_tiles_match_full():
+    """Frequency bands of the MAC, tiled across Hp, reassemble the full
+    MAC (the split-tail schedule's per-phase shares)."""
     rng = np.random.default_rng(5)
     p, c, hp, tile = 5, 3, 512, 128
-    ring = rng.standard_normal((p, 2 * c, hp)).astype(np.float32)
-    coef = rng.standard_normal((p, 2 * c, hp)).astype(np.float32)
+    ring = jnp.asarray(rng.standard_normal((p, 2 * c, hp)).astype(np.float32))
+    coef = jnp.asarray(rng.standard_normal((p, 2 * c, hp)).astype(np.float32))
     for pos in [0, 2, 4]:
-        yr, yi = K.mac_pallas_hc_tiled(ring, coef, jnp.int32(pos), tile=tile,
-                                       interpret=True)
-        rr, ri = K.mac_reference_hc(ring[:, :c], ring[:, c:],
-                                    coef[:, :c], coef[:, c:], jnp.int32(pos))
+        bands = [K.mac_reference_hc_band(ring, coef, jnp.int32(pos), t, tile)
+                 for t in range(0, hp, tile)]
+        yr = jnp.concatenate([b[0] for b in bands], axis=-1)
+        yi = jnp.concatenate([b[1] for b in bands], axis=-1)
+        rr, ri = K.mac_hc(ring, coef, jnp.int32(pos))
         np.testing.assert_allclose(np.asarray(yr), np.asarray(rr), atol=1e-4)
         np.testing.assert_allclose(np.asarray(yi), np.asarray(ri), atol=1e-4)
 
@@ -142,9 +151,9 @@ def test_nu_macro_equals_per_block():
     blocks = jnp.asarray(x.reshape(c, -1, spec.block_length).transpose(1, 0, 2))
 
     st_a = NU.init_nu_state(spec, c)
-    st_a, ya = NU.process_blocks_nu(st_a, coeffs, blocks, use_pallas=False)
+    st_a, ya = NU.process_blocks_nu(st_a, coeffs, blocks)
     st_b = NU.init_nu_state(spec, c)
-    st_b, yb = NU.process_blocks_nu_fast(st_b, coeffs, blocks, use_pallas=False)
+    st_b, yb = NU.process_blocks_nu_fast(st_b, coeffs, blocks)
 
     np.testing.assert_allclose(np.asarray(ya), np.asarray(yb), atol=1e-6)
     for a, b in zip(jax.tree_util.tree_leaves(st_a),
@@ -152,15 +161,15 @@ def test_nu_macro_equals_per_block():
         np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=1e-6)
     # and the formulations are interchangeable mid-stream
     st_c = NU.init_nu_state(spec, c)
-    st_c, y1 = NU.process_blocks_nu_fast(st_c, coeffs, blocks[:8], use_pallas=False)
-    st_c, y2 = NU.process_blocks_nu(st_c, coeffs, blocks[8:20], use_pallas=False)
-    st_c, y3 = NU.process_blocks_nu_fast(st_c, coeffs, blocks[20:], use_pallas=False)
+    st_c, y1 = NU.process_blocks_nu_fast(st_c, coeffs, blocks[:8])
+    st_c, y2 = NU.process_blocks_nu(st_c, coeffs, blocks[8:20])
+    st_c, y3 = NU.process_blocks_nu_fast(st_c, coeffs, blocks[20:])
     yc = jnp.concatenate([y1, y2, y3], axis=0)
     np.testing.assert_allclose(np.asarray(yc), np.asarray(ya), atol=1e-6)
 
     with pytest.raises(ValueError):
         NU.process_blocks_nu_fast(NU.init_nu_state(spec, c), coeffs,
-                                  blocks[:3], use_pallas=False)
+                                  blocks[:3])
 
 
 def _run_nu_crossfade(spec, h1, h2, x, swap_block):
@@ -179,16 +188,14 @@ def _run_nu_crossfade(spec, h1, h2, x, swap_block):
         phase = int(st.head.blockcounter) % spec.ratio
         fired = phase == spec.ratio - 1
         if b == swap_block:
-            st, y = NU.step_nu_crossfade(st, c1, c2, blk, head_ramp=True,
-                                         use_pallas=False)
+            st, y = NU.step_nu_crossfade(st, c1, c2, blk, head_ramp=True)
             in_transition = not fired
         elif in_transition:
-            st, y = NU.step_nu_crossfade(st, c1, c2, blk, head_ramp=False,
-                                         use_pallas=False)
+            st, y = NU.step_nu_crossfade(st, c1, c2, blk, head_ramp=False)
             in_transition = not fired
         else:
             co = c1 if b < swap_block else c2
-            st, y = NU.step_nu(st, co, blk, use_pallas=False)
+            st, y = NU.step_nu(st, co, blk)
         outs.append(np.asarray(y))
     return np.concatenate(outs, axis=1)
 
@@ -201,7 +208,7 @@ def test_nu_crossfade_identity_is_plain_step():
     h = rng.standard_normal((c, spec.max_taps)).astype(np.float32)
     x = rng.standard_normal((c, 24 * spec.block_length)).astype(np.float32)
     y = _run_nu_crossfade(spec, h, h, x, swap_block=9)
-    _, ref = _run_nu(spec, h, x, use_pallas=False)
+    _, ref = _run_nu(spec, h, x)
     np.testing.assert_allclose(y, ref, atol=1e-5 * np.abs(ref).max())
 
 
@@ -218,7 +225,7 @@ def test_nu_crossfade_converges_to_new_filter():
     x = rng.standard_normal((c, nblk * n)).astype(np.float32)
     swap = 11
     y = _run_nu_crossfade(spec, h1, h2, x, swap_block=swap)
-    _, ref2 = _run_nu(spec, h2, x, use_pallas=False)
+    _, ref2 = _run_nu(spec, h2, x)
     # converged once the bridging M-block has been fully consumed and the
     # head ring holds only post-swap history
     settle = swap + R * (D + 2) + spec.p_head
@@ -246,7 +253,7 @@ def test_nu_crossfade_is_continuous():
     sig = np.sin(2 * np.pi * t / 37.0)
     x = np.stack([sig, sig]).astype(np.float32)
     y = _run_nu_crossfade(spec, h1, h2, x, swap_block=20)
-    _, ys = _run_nu(spec, h1, x, use_pallas=False)
+    _, ys = _run_nu(spec, h1, x)
     steady = np.abs(np.diff(ys[:, 5 * n:], axis=1)).max()
     trans = np.abs(np.diff(y[:, 5 * n:], axis=1)).max()
     assert trans < 3 * steady, (trans, steady)
@@ -269,18 +276,12 @@ def test_nu_bf16_tail_store():
     st = NU.init_nu_state(spec, c)
     assert st.tail.ring.dtype == jnp.bfloat16
     blocks = jnp.asarray(x.reshape(c, -1, spec.block_length).transpose(1, 0, 2))
-    _, out = NU.process_blocks_nu_fast(st, coeffs, blocks, use_pallas=False)
+    _, out = NU.process_blocks_nu_fast(st, coeffs, blocks)
     y = np.asarray(out.transpose(1, 0, 2).reshape(c, -1))
     ref = _scipy_ref(h.astype(np.float64), x.astype(np.float64), y.shape[1])
     snr = 10 * np.log10(float((ref**2).sum()) /
                         float(((y - ref)**2).sum()))
     assert snr > 45, snr  # tail-limited but controlled precision class
-    # interpret-mode pallas kernel agrees with the reference formulation
-    _, out_pl = NU.process_blocks_nu_fast(NU.init_nu_state(spec, c), coeffs,
-                                          blocks, use_pallas=True,
-                                          interpret=True)
-    np.testing.assert_allclose(np.asarray(out_pl), np.asarray(out),
-                               atol=2e-3 * np.abs(np.asarray(out)).max())
 
     with pytest.raises(ValueError):
         NU.NuSpec(block_length=8, ratio=2, p_head=4, p_tail=4,
@@ -310,7 +311,7 @@ def test_nu_spec_validation():
 
 def test_nu_coeffs_rejects_overlong_impulse():
     """An impulse longer than the geometry covers must raise, not silently
-    drop tail energy (ADVICE r2 #3)."""
+    drop tail energy."""
     rng = np.random.default_rng(12)
     spec = NU.NuSpec(block_length=8, ratio=2, p_head=4, p_tail=2)
     h = rng.standard_normal((2, spec.max_taps + 1)).astype(np.float32)
@@ -319,8 +320,8 @@ def test_nu_coeffs_rejects_overlong_impulse():
 
 
 def test_nu_traffic_bytes_honors_tail_store():
-    """traffic_bytes_per_block must account the tail at its storage dtype
-    (ADVICE r2 #2): bf16 halves exactly the tail term."""
+    """traffic_bytes_per_block must account the tail at its storage dtype:
+    bf16 halves exactly the tail term."""
     f32 = NU.NuSpec(block_length=8, ratio=2, p_head=4, p_tail=2)
     bf16 = NU.NuSpec(block_length=8, ratio=2, p_head=4, p_tail=2,
                      tail_store="bfloat16")
@@ -334,8 +335,8 @@ def test_nu_traffic_bytes_honors_tail_store():
 def test_nu_double_swap_bridges_original_tail():
     """A second filter change arriving while the first change's bridging
     tail fire is still pending must keep the ORIGINAL coefficients as the
-    tail crossfade's old side — the pending queue was computed with them
-    (ADVICE r2 #1). Drives the exact sequence engine.session now drives and
+    tail crossfade's old side — the pending queue was computed with them.
+    Drives the exact sequence engine.session now drives and
     checks sample-level continuity plus convergence to the final filter."""
     rng = np.random.default_rng(13)
     spec = NU.NuSpec(block_length=8, ratio=4, p_head=8, p_tail=2)
@@ -379,28 +380,28 @@ def test_nu_double_swap_bridges_original_tail():
         if pending_swap is not None:
             old = coeffs if nu_old is None else nu_old._replace(head=coeffs.head)
             st, y = NU.step_nu_crossfade(st, old, pending_swap, blk,
-                                         head_ramp=True, use_pallas=False)
+                                         head_ramp=True)
             nu_old = None if fired else old
             coeffs = pending_swap
             pending_swap = None
         elif nu_old is not None:
             st, y = NU.step_nu_crossfade(st, nu_old, coeffs, blk,
-                                         head_ramp=False, use_pallas=False)
+                                         head_ramp=False)
             if fired:
                 nu_old = None
         else:
-            st, y = NU.step_nu(st, coeffs, blk, use_pallas=False)
+            st, y = NU.step_nu(st, coeffs, blk)
         outs.append(np.asarray(y))
     y = np.concatenate(outs, axis=1)
 
     # continuity: consecutive-sample jumps stay at the steady-state scale
-    _, ys = _run_nu(spec, ha, x, use_pallas=False)
+    _, ys = _run_nu(spec, ha, x)
     steady = np.abs(np.diff(ys[:, 5 * n:], axis=1)).max()
     trans = np.abs(np.diff(y[:, 5 * n:], axis=1)).max()
     assert trans < 3 * steady, (trans, steady)
 
     # convergence: after the transition settles the stream is pure h_c
-    _, ref = _run_nu(spec, hc_, x, use_pallas=False)
+    _, ref = _run_nu(spec, hc_, x)
     settle = swap2 + R * (D + 2) + spec.p_head
     np.testing.assert_allclose(y[:, settle * n:], ref[:, settle * n:],
                                atol=2e-5 * np.abs(ref).max())
@@ -426,7 +427,7 @@ def test_nu3_matches_scipy():
     c = 2
     h = rng.standard_normal((c, spec.max_taps)).astype(np.float32)
     x = rng.standard_normal((c, 64 * spec.block_length)).astype(np.float32)
-    _, y = _run_nu3(spec, h, x, use_pallas=False)
+    _, y = _run_nu3(spec, h, x)
     ref = _scipy_ref(h, x, y.shape[1])
     err = np.abs(y - ref).max() / np.abs(ref).max()
     assert err < 1e-5, err
@@ -440,7 +441,7 @@ def test_nu3_partial_taps():
     taps = spec.max_taps - spec.inner.m - 5
     h = rng.standard_normal((c, taps)).astype(np.float32)
     x = rng.standard_normal((c, 96 * spec.block_length)).astype(np.float32)
-    _, y = _run_nu3(spec, h, x, use_pallas=False)
+    _, y = _run_nu3(spec, h, x)
     ref = _scipy_ref(h, x, y.shape[1])
     err = np.abs(y - ref).max() / np.abs(ref).max()
     assert err < 1e-5, err
@@ -460,27 +461,24 @@ def test_nu3_fast_equals_per_block():
     blocks = jnp.asarray(x.reshape(c, -1, spec.block_length).transpose(1, 0, 2))
 
     st_a = NU.init_nu3_state(spec, c)
-    st_a, ya = NU.process_blocks_nu3(st_a, coeffs, blocks, use_pallas=False)
+    st_a, ya = NU.process_blocks_nu3(st_a, coeffs, blocks)
     st_b = NU.init_nu3_state(spec, c)
-    st_b, yb = NU.process_blocks_nu3_fast(st_b, coeffs, blocks, use_pallas=False)
+    st_b, yb = NU.process_blocks_nu3_fast(st_b, coeffs, blocks)
     np.testing.assert_allclose(np.asarray(ya), np.asarray(yb), atol=1e-6)
     for a, b in zip(jax.tree_util.tree_leaves(st_a),
                     jax.tree_util.tree_leaves(st_b)):
         np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=1e-6)
 
     st_c = NU.init_nu3_state(spec, c)
-    st_c, y1 = NU.process_blocks_nu3_fast(st_c, coeffs, blocks[:2 * sup],
-                                          use_pallas=False)
-    st_c, y2 = NU.process_blocks_nu3(st_c, coeffs, blocks[2 * sup:5 * sup],
-                                     use_pallas=False)
-    st_c, y3 = NU.process_blocks_nu3_fast(st_c, coeffs, blocks[5 * sup:],
-                                          use_pallas=False)
+    st_c, y1 = NU.process_blocks_nu3_fast(st_c, coeffs, blocks[:2 * sup])
+    st_c, y2 = NU.process_blocks_nu3(st_c, coeffs, blocks[2 * sup:5 * sup])
+    st_c, y3 = NU.process_blocks_nu3_fast(st_c, coeffs, blocks[5 * sup:])
     yc = jnp.concatenate([y1, y2, y3], axis=0)
     np.testing.assert_allclose(np.asarray(yc), np.asarray(ya), atol=1e-6)
 
     with pytest.raises(ValueError):
         NU.process_blocks_nu3_fast(NU.init_nu3_state(spec, c), coeffs,
-                                   blocks[:3], use_pallas=False)
+                                   blocks[:3])
 
 
 def test_nu3_state_carry():
@@ -492,10 +490,10 @@ def test_nu3_state_carry():
     coeffs = NU.nu3_coeffs(h, spec, c)
     blocks = jnp.asarray(x.reshape(c, -1, 4).transpose(1, 0, 2))
     st = NU.init_nu3_state(spec, c)
-    _, one = NU.process_blocks_nu3(st, coeffs, blocks, use_pallas=False)
+    _, one = NU.process_blocks_nu3(st, coeffs, blocks)
     st = NU.init_nu3_state(spec, c)
-    st, a = NU.process_blocks_nu3(st, coeffs, blocks[:9], use_pallas=False)
-    st, b = NU.process_blocks_nu3(st, coeffs, blocks[9:], use_pallas=False)
+    st, a = NU.process_blocks_nu3(st, coeffs, blocks[:9])
+    st, b = NU.process_blocks_nu3(st, coeffs, blocks[9:])
     np.testing.assert_array_equal(np.asarray(one),
                                   np.asarray(jnp.concatenate([a, b], axis=0)))
 
@@ -515,20 +513,27 @@ def test_nu3_geometry_and_validation():
         NU.nu3_coeffs(np.zeros((1, spec.max_taps + 1)), spec, 1)
 
 
-def test_nu3_pallas_interpret():
+def test_nu3_matches_scipy_matmul_fft():
+    """The three-stage engine with every transform on the matmul DFTs."""
+    from bfir_tpu.ops import fft as F
+
     rng = np.random.default_rng(54)
     spec = NU.nu3_geometry(150, block_length=128, ratio1=2, ratio2=2)
     c = 2
     h = rng.standard_normal((c, min(spec.max_taps, 900))).astype(np.float32)
     x = rng.standard_normal((c, 16 * spec.block_length)).astype(np.float32)
-    _, y = _run_nu3(spec, h, x, use_pallas=True, interpret=True)
+    F.set_mode("matmul")
+    try:
+        _, y = _run_nu3(spec, h, x)
+    finally:
+        F.set_mode("auto")
     ref = _scipy_ref(h, x, y.shape[1])
     err = np.abs(y - ref).max() / np.abs(ref).max()
     assert err < 1e-4, err
 
 
 # ---------------------------------------------------------------------------
-# Three-stage crossfade (VERDICT r3 next #4): the two-stage law composed
+# Three-stage crossfade: the two-stage law composed
 # recursively — continuity + convergence, mirroring the nu2 suite above.
 # ---------------------------------------------------------------------------
 
@@ -553,22 +558,22 @@ def _run_nu3_crossfade(spec, h1, h2, x, swap_block):
         inner_fires = (cnt // r1) % r2 == r2 - 1
         if b == swap_block:
             st, y = NU.step_nu3_crossfade(st, c1, c2, blk, head_ramp=True,
-                                          inner_mode="ramp", use_pallas=False)
+                                          inner_mode="ramp")
             stage = None if (fires and inner_fires) else (
                 "inner" if fires else "outer")
         elif stage == "outer":
             st, y = NU.step_nu3_crossfade(st, c1, c2, blk, head_ramp=False,
-                                          inner_mode="ramp", use_pallas=False)
+                                          inner_mode="ramp")
             if fires:
                 stage = None if inner_fires else "inner"
         elif stage == "inner":
             st, y = NU.step_nu3_crossfade(st, c1, c2, blk, head_ramp=False,
-                                          inner_mode="hold", use_pallas=False)
+                                          inner_mode="hold")
             if fires and inner_fires:
                 stage = None
         else:
             co = c1 if b < swap_block else c2
-            st, y = NU.step_nu3(st, co, blk, use_pallas=False)
+            st, y = NU.step_nu3(st, co, blk)
         outs.append(np.asarray(y))
     return np.concatenate(outs, axis=1)
 
@@ -589,7 +594,7 @@ def test_nu3_crossfade_identity_is_plain_step():
     x = rng.standard_normal((c, 40 * spec.block_length)).astype(np.float32)
     for swap in (9, 10, 11, 13):  # covers all (outer, inner) phase cases
         y = _run_nu3_crossfade(spec, h, h, x, swap_block=swap)
-        _, ref = _run_nu3(spec, h, x, use_pallas=False)
+        _, ref = _run_nu3(spec, h, x)
         np.testing.assert_allclose(y, ref, atol=2e-5 * np.abs(ref).max(),
                                    err_msg=f"swap at block {swap}")
 
@@ -609,7 +614,7 @@ def test_nu3_crossfade_converges_to_new_filter():
     x = rng.standard_normal((c, nblk * n)).astype(np.float32)
     swap = 11
     y = _run_nu3_crossfade(spec, h1, h2, x, swap_block=swap)
-    _, ref2 = _run_nu3(spec, h2, x, use_pallas=False)
+    _, ref2 = _run_nu3(spec, h2, x)
     # settle: the far bridging fire lands within r1*r2 blocks of the swap;
     # its ramped M2-block drains through both pending queues (D2 inner +
     # D1 outer fires) and every ring must hold only post-swap history
@@ -641,29 +646,28 @@ def test_nu3_crossfade_is_continuous():
     sig = np.sin(2 * np.pi * t / 37.0)
     x = np.stack([sig, sig]).astype(np.float32)
     y = _run_nu3_crossfade(spec, h1, h2, x, swap_block=20)
-    _, ys = _run_nu3(spec, h1, x, use_pallas=False)
+    _, ys = _run_nu3(spec, h1, x)
     steady = np.abs(np.diff(ys[:, 5 * n:], axis=1)).max()
     trans = np.abs(np.diff(y[:, 5 * n:], axis=1)).max()
     assert trans < 3 * steady, (trans, steady)
 
 
-def test_nu_tail_fused_inverse_path():
-    """A geometry whose tail M-block is eligible for the fused balanced
-    inverse (h = M >= 1024, kernels/fft_fused.py) streams correctly through
-    the wired path (use_pallas=True, interpret mode) vs scipy."""
+def test_nu_tail_m1024_matches_scipy():
+    """A geometry with a 1024-sample tail M-block (h = M >= 1024) streams
+    correctly vs scipy."""
     rng = np.random.default_rng(63)
     spec = NU.NuSpec(block_length=128, ratio=8, p_head=16, p_tail=2)
     c = 2
     h = (rng.standard_normal((c, spec.max_taps)) *
          np.exp(-np.arange(spec.max_taps) / 1500.0)).astype(np.float32) * 0.1
     x = rng.standard_normal((c, 40 * spec.block_length)).astype(np.float32)
-    _, y = _run_nu(spec, h, x, use_pallas=True, interpret=True)
+    _, y = _run_nu(spec, h, x)
     ref = _scipy_ref(h.astype(np.float64), x.astype(np.float64), y.shape[1])
     snr = 10 * np.log10(float((ref**2).sum()) / float(((y - ref)**2).sum()))
     assert snr > 100, snr
 
 
-# -- split-tail schedule (VERDICT r4 next #4) --------------------------------
+# -- split-tail schedule ----------------------------------------------------
 
 
 @pytest.fixture(autouse=True)
@@ -703,8 +707,8 @@ def test_split_tail_matches_step_nu(ratio, p_tail):
     n = spec.block_length
     for b in range(nblocks):
         blk = x[:, b * n:(b + 1) * n]
-        st_a, ya = NU.step_nu(st_a, co, blk, use_pallas=False)
-        st_b, yb = NU.step_nu_split(st_b, co, blk, use_pallas=False)
+        st_a, ya = NU.step_nu(st_a, co, blk)
+        st_b, yb = NU.step_nu_split(st_b, co, blk)
         scale = max(1.0, float(np.abs(np.asarray(ya)).max()))
         np.testing.assert_allclose(np.asarray(yb), np.asarray(ya),
                                    atol=1e-6 * scale, err_msg=f"block {b}")
@@ -722,8 +726,7 @@ def test_split_tail_matches_scipy_f64():
     x = rng.standard_normal((c, nblocks * n))
     outs = []
     for b in range(nblocks):
-        st, y = NU.step_nu_split(st, co, x[:, b * n:(b + 1) * n],
-                                 use_pallas=False)
+        st, y = NU.step_nu_split(st, co, x[:, b * n:(b + 1) * n])
         outs.append(np.asarray(y))
     y = np.concatenate(outs, axis=1)
     ref = signal.fftconvolve(x, h, axes=1)[:, : y.shape[1]]
@@ -740,24 +743,23 @@ def test_split_tail_scan_matches_steps():
     x = rng.standard_normal((c, nblocks * n)).astype(np.float32)
     blocks = jnp.asarray(x.reshape(c, nblocks, n).transpose(1, 0, 2))
     st_s, ys = NU.process_blocks_nu_split(NU.init_nu_split_state(spec, c),
-                                          co, blocks, use_pallas=False)
+                                          co, blocks)
     st_p = NU.init_nu_split_state(spec, c)
     refs = []
     for b in range(nblocks):
-        st_p, y = NU.step_nu_split(st_p, co, x[:, b * n:(b + 1) * n],
-                                   use_pallas=False)
+        st_p, y = NU.step_nu_split(st_p, co, x[:, b * n:(b + 1) * n])
         refs.append(np.asarray(y))
     np.testing.assert_array_equal(np.asarray(ys), np.stack(refs))
     blk = rng.standard_normal((c, n)).astype(np.float32)
-    _, oa = NU.step_nu_split(st_s, co, blk, use_pallas=False)
-    _, ob = NU.step_nu_split(st_p, co, blk, use_pallas=False)
+    _, oa = NU.step_nu_split(st_s, co, blk)
+    _, ob = NU.step_nu_split(st_p, co, blk)
     np.testing.assert_array_equal(np.asarray(oa), np.asarray(ob))
 
 
-def test_mac_band_kernel_matches_reference():
-    """mac_pallas_hc_band (interpret mode) == the banded jnp reference ==
-    the full tiled MAC restricted to the band, incl. the DC fixup in
-    band 0."""
+def test_mac_band_matches_numpy_f64():
+    """The banded MAC == a float64 numpy literal of the halfcomplex law
+    restricted to the band == the full MAC restricted to the band, incl.
+    the DC fixup in band 0."""
     from bfir_tpu.kernels import spectrum_mac as K
 
     rng = np.random.default_rng(84)
@@ -767,36 +769,52 @@ def test_mac_band_kernel_matches_reference():
     pos = jnp.asarray(3, jnp.int32)
     full_r, full_i = K.mac_reference_hc(ring[:, :c], ring[:, c:],
                                         coeff[:, :c], coeff[:, c:], pos)
+    r64 = np.asarray(ring, np.float64)
+    c64 = np.asarray(coeff, np.float64)
+    idx = (3 - np.arange(p)) % p
+    rr64, ri64 = r64[idx, :c], r64[idx, c:]
+    cr64, ci64 = c64[:, :c], c64[:, c:]
+    er = (cr64 * rr64 - ci64 * ri64).sum(axis=0)
+    ei = (cr64 * ri64 + ci64 * rr64).sum(axis=0)
+    er[:, 0] = (cr64[..., 0] * rr64[..., 0]).sum(axis=0)
+    ei[:, 0] = (ci64[..., 0] * ri64[..., 0]).sum(axis=0)
+    # f32 sum of p products of unit-variance normals: ~p * eps32 * max term
+    tol = 4 * p * np.finfo(np.float32).eps * float(
+        np.abs(r64).max() * np.abs(c64).max())
     for band, blen in ((0, 128), (1, 128), (3, 128), (0, 256), (1, 256)):
-        br, bi = K.mac_pallas_hc_band(ring, coeff, pos, band * blen, blen,
-                                      interpret=True)
-        rr, ri = K.mac_reference_hc_band(ring, coeff, pos, band * blen, blen)
-        np.testing.assert_allclose(np.asarray(br), np.asarray(rr), atol=1e-5)
-        np.testing.assert_allclose(np.asarray(bi), np.asarray(ri), atol=1e-5)
+        br, bi = K.mac_reference_hc_band(ring, coeff, pos, band * blen, blen)
         sl = slice(band * blen, band * blen + blen)
+        np.testing.assert_allclose(np.asarray(br), er[:, sl], atol=tol)
+        np.testing.assert_allclose(np.asarray(bi), ei[:, sl], atol=tol)
         np.testing.assert_allclose(np.asarray(br), np.asarray(full_r[:, sl]),
                                    atol=1e-5)
         np.testing.assert_allclose(np.asarray(bi), np.asarray(full_i[:, sl]),
                                    atol=1e-5)
 
 
-def test_split_tail_interpret_pallas_path():
-    """The Pallas kernel path (interpret mode) of the split schedule agrees
-    with step_nu's kernel path."""
+def test_split_tail_matmul_fft_matches_step_nu():
+    """With the transforms forced onto the matmul DFTs the split schedule
+    still agrees with step_nu."""
+    from bfir_tpu.ops import fft as F
+
     rng, spec, c, h, co = _split_setup(85)
     n = spec.block_length
     st_a = NU.init_nu_state(spec, c)
     st_b = NU.init_nu_split_state(spec, c)
     nblocks = (spec.delay_blocks + 2) * spec.ratio
     x = rng.standard_normal((c, nblocks * n)).astype(np.float32)
-    for b in range(nblocks):
-        blk = x[:, b * n:(b + 1) * n]
-        st_a, ya = NU.step_nu(st_a, co, blk, interpret=True, use_pallas=True)
-        st_b, yb = NU.step_nu_split(st_b, co, blk, interpret=True,
-                                    use_pallas=True)
-        scale = max(1.0, float(np.abs(np.asarray(ya)).max()))
-        np.testing.assert_allclose(np.asarray(yb), np.asarray(ya),
-                                   atol=1e-5 * scale, err_msg=f"block {b}")
+    F.set_mode("matmul")
+    try:
+        for b in range(nblocks):
+            blk = x[:, b * n:(b + 1) * n]
+            st_a, ya = NU.step_nu(st_a, co, blk)
+            st_b, yb = NU.step_nu_split(st_b, co, blk)
+            scale = max(1.0, float(np.abs(np.asarray(ya)).max()))
+            np.testing.assert_allclose(np.asarray(yb), np.asarray(ya),
+                                       atol=1e-5 * scale,
+                                       err_msg=f"block {b}")
+    finally:
+        F.set_mode("auto")
 
 
 def test_split_band_len_validation():
@@ -807,7 +825,7 @@ def test_split_band_len_validation():
                                        p_tail=2)) == 128
 
 
-# -- block-scaled integer storage tiers (VERDICT r4 next #1) -----------------
+# -- block-scaled integer storage tiers -------------------------------------
 
 
 def test_quantize_planes_roundtrip():
@@ -829,7 +847,10 @@ def test_quantize_planes_roundtrip():
         assert err.max() < rel, (bits, err.max())
 
 
-def test_int_mac_kernel_matches_reference():
+def test_int_mac_matches_numpy_f64():
+    """The int-stored MAC == a float64 numpy literal of the halfcomplex
+    law on the decoded planes (decode is exact in f32), for int24/int16
+    and the shared-coefficient form."""
     from bfir_tpu.kernels import spectrum_mac as K
 
     rng = np.random.default_rng(91)
@@ -837,20 +858,34 @@ def test_int_mac_kernel_matches_reference():
     ring = jnp.asarray(rng.standard_normal((p, 2 * c, hp)).astype(np.float32))
     coeff = jnp.asarray(rng.standard_normal((p, 2 * c, hp)).astype(np.float32))
     pos = jnp.asarray(3, jnp.int32)
+    def law(rq, cq):
+        r64 = np.asarray(K.dequantize_planes(rq), np.float64)
+        c64 = np.asarray(K.dequantize_planes(cq), np.float64)
+        cs = c64.shape[1] // 2
+        idx = (3 - np.arange(p)) % p
+        rr, ri = r64[idx, :c], r64[idx, c:]
+        cr, ci = c64[:, :cs], c64[:, cs:]
+        er = (cr * rr - ci * ri).sum(axis=0)
+        ei = (cr * ri + ci * rr).sum(axis=0)
+        er[:, 0] = (cr[..., 0] * rr[..., 0]).sum(axis=0)
+        ei[:, 0] = (ci[..., 0] * ri[..., 0]).sum(axis=0)
+        return er, ei
+
+    tol = 4 * p * np.finfo(np.float32).eps * 25.0  # |normal| < 5 here
     for bits in (24, 16):
         rq = K.quantize_planes(ring, bits)
         cq = K.quantize_planes(coeff, bits)
         jr, ji = K.mac_reference_hc_int(rq, cq, pos)
-        kr, ki = K.mac_pallas_hc_tiled_int(rq, cq, pos, tile=128,
-                                           interpret=True)
-        np.testing.assert_allclose(np.asarray(kr), np.asarray(jr), atol=1e-4)
-        np.testing.assert_allclose(np.asarray(ki), np.asarray(ji), atol=1e-4)
+        er, ei = law(rq, cq)
+        np.testing.assert_allclose(np.asarray(jr), er, atol=tol)
+        np.testing.assert_allclose(np.asarray(ji), ei, atol=tol)
     # shared-coefficient form ([P, 2, Hp])
     cq1 = K.quantize_planes(coeff[:, [0, c]], 24)
     rq = K.quantize_planes(ring, 24)
-    kr, ki = K.mac_pallas_hc_tiled_int(rq, cq1, pos, tile=128, interpret=True)
     jr, ji = K.mac_reference_hc_int(rq, cq1, pos)
-    np.testing.assert_allclose(np.asarray(kr), np.asarray(jr), atol=1e-4)
+    er, ei = law(rq, cq1)
+    np.testing.assert_allclose(np.asarray(jr), er, atol=tol)
+    np.testing.assert_allclose(np.asarray(ji), ei, atol=tol)
 
 
 @pytest.mark.parametrize("store,min_snr,max_snr", [
@@ -878,7 +913,7 @@ def test_nu_int_tail_store_stream(store, min_snr, max_snr):
     x = rng.standard_normal((c, nblocks * n)).astype(np.float32)
     outs = []
     for b in range(nblocks):
-        st, y = NU.step_nu(st, co, x[:, b * n:(b + 1) * n], use_pallas=False)
+        st, y = NU.step_nu(st, co, x[:, b * n:(b + 1) * n])
         outs.append(np.asarray(y))
     y = np.concatenate(outs, axis=1)
     ref = signal.fftconvolve(x.astype(np.float64), h.astype(np.float64),
@@ -890,8 +925,7 @@ def test_nu_int_tail_store_stream(store, min_snr, max_snr):
 
 
 def test_nu_int_tail_macro_and_kernel_paths_agree():
-    """Macro scan (kernel path, interpret) == per-block steps (reference
-    path) on the int24 tier."""
+    """Macro scan == per-block steps on the int24 tier."""
     rng = np.random.default_rng(93)
     spec = NU.NuSpec(block_length=128, ratio=2, p_head=4, p_tail=2,
                      tail_store="int24")
@@ -903,13 +937,11 @@ def test_nu_int_tail_macro_and_kernel_paths_agree():
     x = rng.standard_normal((c, nblocks * n)).astype(np.float32)
     blocks = jnp.asarray(x.reshape(c, nblocks, n).transpose(1, 0, 2))
     st_m, ys = NU.process_blocks_nu_fast(NU.init_nu_state(spec, c), co,
-                                         blocks, interpret=True,
-                                         use_pallas=True)
+                                         blocks)
     st_p = NU.init_nu_state(spec, c)
     refs = []
     for b in range(nblocks):
-        st_p, y = NU.step_nu(st_p, co, x[:, b * n:(b + 1) * n],
-                             use_pallas=False)
+        st_p, y = NU.step_nu(st_p, co, x[:, b * n:(b + 1) * n])
         refs.append(np.asarray(y))
     np.testing.assert_allclose(np.asarray(ys), np.stack(refs), atol=2e-5)
 
@@ -927,11 +959,9 @@ def test_nu_int_tail_crossfade_runs():
     st = NU.init_nu_state(spec, c)
     n = spec.block_length
     for b in range(2 * spec.ratio):
-        st, _ = NU.step_nu(st, co1, rng.standard_normal((c, n)).astype(np.float32),
-                           use_pallas=False)
+        st, _ = NU.step_nu(st, co1, rng.standard_normal((c, n)).astype(np.float32))
     st, y = NU.step_nu_crossfade(st, co1, co2,
-                                 rng.standard_normal((c, n)).astype(np.float32),
-                                 use_pallas=False)
+                                 rng.standard_normal((c, n)).astype(np.float32))
     assert np.isfinite(np.asarray(y)).all()
 
 
@@ -944,8 +974,8 @@ def test_split_tail_rejects_int_head_store():
 
 @pytest.mark.parametrize("store,min_snr", [("int24", 115.0), ("int16", 75.0)])
 def test_nu_int_head_and_tail_store(store, min_snr):
-    """Both stages int-stored: stream SNR in the tier's class; kernel
-    (interpret) and reference paths agree."""
+    """Both stages int-stored: stream SNR in the tier's class; the
+    per-block steps and the macro scan agree."""
     from scipy import signal
 
     rng = np.random.default_rng(95)
@@ -962,16 +992,16 @@ def test_nu_int_head_and_tail_store(store, min_snr):
     n = spec.block_length
     nblocks = (spec.delay_blocks + 3) * spec.ratio
     x = rng.standard_normal((c, nblocks * n)).astype(np.float32)
-    outs, outs_k = [], []
-    st_k = NU.init_nu_state(spec, c)
+    outs = []
     for b in range(nblocks):
         blk = x[:, b * n:(b + 1) * n]
-        st, y = NU.step_nu(st, co, blk, use_pallas=False)
-        st_k, yk = NU.step_nu(st_k, co, blk, interpret=True, use_pallas=True)
+        st, y = NU.step_nu(st, co, blk)
         outs.append(np.asarray(y))
-        outs_k.append(np.asarray(yk))
     y = np.concatenate(outs, axis=1)
-    yk = np.concatenate(outs_k, axis=1)
+    _, ym = NU.process_blocks_nu_fast(
+        NU.init_nu_state(spec, c), co,
+        jnp.asarray(x.reshape(c, nblocks, n).transpose(1, 0, 2)))
+    yk = np.asarray(ym).transpose(1, 0, 2).reshape(c, -1)
     np.testing.assert_allclose(yk, y, atol=2e-5 * max(1.0, np.abs(y).max()))
     ref = signal.fftconvolve(x.astype(np.float64), h.astype(np.float64),
                              axes=1)[:, : y.shape[1]]
@@ -999,18 +1029,17 @@ def test_nu_int_head_crossfade_converges():
     for b in range(4 * spec.ratio):
         blk = rng.standard_normal((c, n)).astype(np.float32)
         xs.append(blk)
-        st, _ = NU.step_nu(st, co1, blk, use_pallas=False)
+        st, _ = NU.step_nu(st, co1, blk)
     # transition: ramp block, then holds until a fire passes
     blk = rng.standard_normal((c, n)).astype(np.float32)
     xs.append(blk)
-    st, y = NU.step_nu_crossfade(st, co1, co2, blk, head_ramp=True,
-                                 use_pallas=False)
+    st, y = NU.step_nu_crossfade(st, co1, co2, blk, head_ramp=True)
     assert np.isfinite(np.asarray(y)).all()
     outs = []
     for b in range(6 * spec.ratio):
         blk = rng.standard_normal((c, n)).astype(np.float32)
         xs.append(blk)
-        st, y = NU.step_nu(st, co2, blk, use_pallas=False)
+        st, y = NU.step_nu(st, co2, blk)
         outs.append(np.asarray(y))
     # the last blocks are pure new-filter output
     full = np.concatenate(xs, axis=1)
@@ -1023,62 +1052,10 @@ def test_nu_int_head_crossfade_converges():
     assert snr > 100, snr
 
 
-def test_split_tail_staged_forward_matches_step_nu():
-    """The STAGED two-phase forward (the real TPU path: balanced four-step
-    stage boundary) at a geometry where the staged split is genuinely
-    eligible (M = 8192 -> frame 16384), on a forced-matmul run.
-
-    Runs in a SUBPROCESS: the forced-matmul step graphs at this size have
-    segfaulted XLA's CPU compiler when compiled late in a long suite
-    (compile-arena pressure); a fresh interpreter compiles them reliably,
-    and a crash then fails THIS test instead of killing the pytest
-    process."""
-    import subprocess
-    import sys
-
-    script = r"""
-import numpy as np
-import jax
-jax.config.update("jax_platforms", "cpu")
-from bfir_tpu.ops import fft as F
-F._FORCE = "matmul"
-from bfir_tpu.core import nonuniform as NU
-assert F.rfft_hc_staged_eligible(16384)
-rng = np.random.default_rng(97)
-spec = NU.NuSpec(block_length=1024, ratio=8, p_head=16, p_tail=2)
-c = 2
-h = (rng.standard_normal((c, spec.max_taps)) * 0.05).astype(np.float32)
-co = NU.nu_coeffs(h, spec, c)
-st_a = NU.init_nu_state(spec, c)
-st_b = NU.init_nu_split_state(spec, c)
-n = spec.block_length
-nblocks = (spec.delay_blocks + 2) * spec.ratio
-x = rng.standard_normal((c, nblocks * n)).astype(np.float32)
-for b in range(nblocks):
-    blk = x[:, b * n:(b + 1) * n]
-    st_a, ya = NU.step_nu(st_a, co, blk, use_pallas=False)
-    st_b, yb = NU.step_nu_split(st_b, co, blk, use_pallas=False)
-    scale = max(1.0, float(np.abs(np.asarray(ya)).max()))
-    np.testing.assert_allclose(np.asarray(yb), np.asarray(ya),
-                               atol=2e-5 * scale, err_msg=f"block {b}")
-print("STAGED_OK")
-"""
-    import os
-
-    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    env = dict(os.environ)
-    env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
-    r = subprocess.run([sys.executable, "-c", script], capture_output=True,
-                       text=True, timeout=600, env=env, cwd=repo)
-    assert r.returncode == 0 and "STAGED_OK" in r.stdout, (
-        r.stdout[-2000:] + r.stderr[-2000:])
-
-
-
 def test_split_tail_int24_matches_step_nu():
     """Split schedule composed with the int24 tail store (banded int
-    kernel): matches step_nu on the same int-stored geometry, both the
-    reference and interpret-kernel paths."""
+    MAC): matches step_nu on the same int-stored geometry, per block and
+    through the cond-free split scan."""
     rng = np.random.default_rng(98)
     spec = NU.NuSpec(block_length=128, ratio=4, p_head=8, p_tail=2,
                      tail_store="int24")
@@ -1090,18 +1067,20 @@ def test_split_tail_int24_matches_step_nu():
     from bfir_tpu.kernels import spectrum_mac as K
 
     assert isinstance(st_b.tail.ring, K.IntPlanes)
-    st_k = NU.init_nu_split_state(spec, c)
     n = spec.block_length
     nblocks = (spec.delay_blocks + 3) * spec.ratio
     x = rng.standard_normal((c, nblocks * n)).astype(np.float32)
+    outs = []
     for b in range(nblocks):
         blk = x[:, b * n:(b + 1) * n]
-        st_a, ya = NU.step_nu(st_a, co, blk, use_pallas=False)
-        st_b, yb = NU.step_nu_split(st_b, co, blk, use_pallas=False)
-        st_k, yk = NU.step_nu_split(st_k, co, blk, interpret=True,
-                                    use_pallas=True)
+        st_a, ya = NU.step_nu(st_a, co, blk)
+        st_b, yb = NU.step_nu_split(st_b, co, blk)
         scale = max(1.0, float(np.abs(np.asarray(ya)).max()))
         np.testing.assert_allclose(np.asarray(yb), np.asarray(ya),
                                    atol=2e-5 * scale, err_msg=f"block {b}")
-        np.testing.assert_allclose(np.asarray(yk), np.asarray(yb),
-                                   atol=2e-5 * scale, err_msg=f"block {b}")
+        outs.append(np.asarray(yb))
+    _, yk = NU.process_blocks_nu_split(
+        NU.init_nu_split_state(spec, c), co,
+        jnp.asarray(x.reshape(c, nblocks, n).transpose(1, 0, 2)))
+    np.testing.assert_allclose(np.asarray(yk), np.stack(outs),
+                               atol=2e-5 * max(1.0, np.abs(outs).max()))

@@ -40,21 +40,17 @@ def test_gbatch_matches_macro_scan(g):
     rng, h, co = _mk()
     xs, blocks = _blocks(rng, 16)
     st_a, ya = NU.process_blocks_nu_fast(
-        NU.init_nu_state(SPEC, C), co, blocks, interpret=True,
-        use_pallas=False)
+        NU.init_nu_state(SPEC, C), co, blocks)
     st_b, yb = NB.process_blocks_nu_gbatch(
-        NU.init_nu_state(SPEC, C), co, blocks, cycles_per_step=g,
-        interpret=True, use_pallas=False)
+        NU.init_nu_state(SPEC, C), co, blocks, cycles_per_step=g)
     scale = float(np.abs(np.asarray(ya)).max())
     np.testing.assert_allclose(np.asarray(yb), np.asarray(ya),
                                atol=2e-6 * scale)
     # the returned NuState must continue identically under the per-block
     # engine (ring/counter/pending reconstruction is exact)
     _, b2 = _blocks(rng, 4)
-    _, ya2 = NU.process_blocks_nu(st_a, co, b2, interpret=True,
-                                  use_pallas=False)
-    _, yb2 = NU.process_blocks_nu(st_b, co, b2, interpret=True,
-                                  use_pallas=False)
+    _, ya2 = NU.process_blocks_nu(st_a, co, b2)
+    _, yb2 = NU.process_blocks_nu(st_b, co, b2)
     np.testing.assert_allclose(np.asarray(yb2), np.asarray(ya2),
                                atol=2e-6 * scale)
 
@@ -63,8 +59,7 @@ def test_gbatch_scipy_oracle():
     rng, h, co = _mk(seed=3)
     xs, blocks = _blocks(rng, 16)
     _, out = NB.process_blocks_nu_gbatch(
-        NU.init_nu_state(SPEC, C), co, blocks, cycles_per_step=4,
-        interpret=True, use_pallas=False)
+        NU.init_nu_state(SPEC, C), co, blocks, cycles_per_step=4)
     y = np.asarray(out).transpose(1, 0, 2).reshape(C, -1)
     ref = signal.fftconvolve(xs.astype(np.float64), h.astype(np.float64),
                              axes=1)[:, : y.shape[1]]
@@ -79,13 +74,10 @@ def test_gbatch_resume_from_midstream_state():
     xs, blocks = _blocks(rng, 20)
     # warm a per-block state through 3 cycles (6 blocks)
     st = NU.init_nu_state(SPEC, C)
-    st, y0 = NU.process_blocks_nu(st, co, blocks[:6], interpret=True,
-                                  use_pallas=False)
-    st_a, ya = NU.process_blocks_nu_fast(st, co, blocks[6:14],
-                                         interpret=True, use_pallas=False)
+    st, y0 = NU.process_blocks_nu(st, co, blocks[:6])
+    st_a, ya = NU.process_blocks_nu_fast(st, co, blocks[6:14])
     st_b, yb = NB.process_blocks_nu_gbatch(st, co, blocks[6:14],
-                                           cycles_per_step=2,
-                                           interpret=True, use_pallas=False)
+                                           cycles_per_step=2)
     scale = float(np.abs(np.asarray(ya)).max())
     np.testing.assert_allclose(np.asarray(yb), np.asarray(ya),
                                atol=2e-6 * scale)
@@ -95,8 +87,7 @@ def test_gbatch_shared_coeffs():
     rng, h, co = _mk(seed=7, shared=True)
     xs, blocks = _blocks(rng, 8)
     _, out = NB.process_blocks_nu_gbatch(
-        NU.init_nu_state(SPEC, C), co, blocks, cycles_per_step=2,
-        interpret=True, use_pallas=False)
+        NU.init_nu_state(SPEC, C), co, blocks, cycles_per_step=2)
     y = np.asarray(out).transpose(1, 0, 2).reshape(C, -1)
     hb = np.broadcast_to(h, (C, h.shape[-1]))
     ref = signal.fftconvolve(xs.astype(np.float64), hb.astype(np.float64),
@@ -119,3 +110,87 @@ def test_gbatch_rejects_int_planes_and_misaligned_blocks():
     with pytest.raises(ValueError, match="multiple of G\\*R"):
         NB.process_blocks_nu_gbatch(NU.init_nu_state(SPEC, C), co,
                                     blocks[:6], cycles_per_step=2)
+
+
+# -- the correlation MAC: Triton kernel (interpret mode) vs the laws --------
+
+
+def _corr_law_f64(hist, coeff, nb):
+    """float64 literal: out[b] = sum_q coeff[q] (*) hist[P-1+b-q] with the
+    halfcomplex lane-0 fixup (two real products at lane 0)."""
+    hist = np.asarray(hist, np.float64)
+    coeff = np.asarray(coeff, np.float64)
+    p = coeff.shape[0]
+    c, cs = hist.shape[1] // 2, coeff.shape[1] // 2
+    yr = np.zeros((nb, c, hist.shape[2]))
+    yi = np.zeros_like(yr)
+    for q in range(p):
+        w = hist[p - 1 - q:p - 1 - q + nb]
+        cr, ci = coeff[q, :cs], coeff[q, cs:]
+        dr = cr * w[:, :c] - ci * w[:, c:]
+        di = cr * w[:, c:] + ci * w[:, :c]
+        dr[..., 0] = (cr * w[:, :c])[..., 0]
+        di[..., 0] = (ci * w[:, c:])[..., 0]
+        yr += dr
+        yi += di
+    return yr, yi
+
+
+@pytest.mark.parametrize("shared,nb,block_b,block_f", [
+    (False, 8, 4, 128),    # two output chunks, two lane tiles
+    (True, 8, 8, 256),     # shared planes, one chunk, one tile
+    (False, 16, 4, 256),   # four chunks
+    (True, 4, 16, 128),    # block_b clipped to nblocks
+])
+def test_corr_mac_triton_interpret_matches_numpy(shared, nb, block_b,
+                                                 block_f):
+    """kernels.corr_mac (Triton route, interpret mode) == the float64 law
+    == the fused XLA form, for shared/distinct coefficients, chunked B and
+    tiled Hp. f32 sum of P products: (P+1) eps32 of sum|terms| (bounded
+    here by P * max|term| with |normal| < 6)."""
+    from bfir_tpu.kernels.corr_mac import corr_mac_triton
+
+    rng = np.random.default_rng(nb + block_b)
+    p, c, hp = 4, 3, 256
+    hist = rng.standard_normal((p - 1 + nb, 2 * c, hp)).astype(np.float32)
+    coeff = rng.standard_normal((p, 2 if shared else 2 * c, hp)).astype(
+        np.float32)
+    yr, yi = corr_mac_triton(jnp.asarray(hist), jnp.asarray(coeff), nb,
+                             block_b=block_b, block_f=block_f)
+    er, ei = _corr_law_f64(hist, coeff, nb)
+    tol = (p + 1) * np.finfo(np.float32).eps * 4 * p * 36.0
+    np.testing.assert_allclose(np.asarray(yr), er, atol=tol)
+    np.testing.assert_allclose(np.asarray(yi), ei, atol=tol)
+    xr, xi = NB._corr_mac(jnp.asarray(hist), jnp.asarray(coeff), nb)
+    np.testing.assert_allclose(np.asarray(yr), np.asarray(xr), atol=tol)
+    np.testing.assert_allclose(np.asarray(yi), np.asarray(xi), atol=tol)
+
+
+def test_corr_mac_triton_rejects_bad_tiles():
+    from bfir_tpu.kernels.corr_mac import corr_mac_triton
+
+    hist = jnp.zeros((3 + 6, 4, 256), jnp.float32)
+    with pytest.raises(ValueError, match="powers of two"):
+        corr_mac_triton(hist, jnp.zeros((4, 4, 256), jnp.float32), 6,
+                        block_b=4)
+    with pytest.raises(ValueError, match="P-1\\+B"):
+        corr_mac_triton(hist, jnp.zeros((3, 4, 256), jnp.float32), 6)
+
+
+def test_gbatch_triton_route_matches_scipy(monkeypatch):
+    """With the platform naming the Triton route, the batched scan runs the
+    kernel (interpreted on the CPU) and still matches scipy."""
+    from bfir_tpu.utils import platform
+
+    monkeypatch.setattr(platform, "corr_mac_route", lambda: "triton")
+    rng, h, co = _mk(7)
+    xs, blocks = _blocks(rng, 8)
+    _, y = NB.process_blocks_nu_gbatch(NU.init_nu_state(SPEC, C), co, blocks,
+                                       cycles_per_step=2)
+    y = np.asarray(y).transpose(1, 0, 2).reshape(C, -1)
+    ref = np.stack([signal.fftconvolve(xs[c].astype(np.float64),
+                                       h[c].astype(np.float64))[:y.shape[1]]
+                    for c in range(C)])
+    snr = min(10 * np.log10((ref[c] ** 2).sum() / ((y[c] - ref[c]) ** 2).sum())
+              for c in range(C))
+    assert snr > 120, snr

@@ -144,7 +144,7 @@ def test_ppermute_step_matches_rolled(devices):
 def test_hlo_collectives(devices, c_shards, p_shards):
     """The flagship sharded step must lower to exactly the claimed schedule:
     one nearest-neighbor collective-permute (ring rotation) + one all-reduce
-    (partition psum), and NO all-gather of the ring (VERDICT r1 missing #1b).
+    (partition psum), and NO all-gather of the ring.
     """
     import re
 
@@ -273,8 +273,8 @@ def test_sharded_step_and_batch_interoperate(devices):
 @pytest.mark.parametrize("c_shards,p_shards", [(2, 4), (4, 2), (1, 8)])
 def test_sharded_hc_matches_single_chip_hc(devices, c_shards, p_shards):
     """local_impl="hc": the pod-scale path must run the exact single-chip
-    optimized engine per shard (VERDICT r2 weak #7) — same packed
-    halfcomplex state, same Pallas MAC kernel, same single-matmul tail —
+    optimized engine per shard — same packed
+    halfcomplex state, same MAC, same overlap-save tail —
     and agree with the single-chip hc step to fp rounding."""
     from bfir_tpu.kernels import spectrum_mac as K
 
@@ -295,7 +295,7 @@ def test_sharded_hc_matches_single_chip_hc(devices, c_shards, p_shards):
     for b in range(10):
         blk = x[:, b * 64 : (b + 1) * 64]
         state, out = eng.step(state, coeffs, blk)
-        ust, ref = K.step_hc(ust, ucoef, blk, use_pallas=False)
+        ust, ref = K.step_hc(ust, ucoef, blk)
         np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
                                    atol=1e-5 * max(1.0, np.abs(ref).max()))
 
@@ -322,10 +322,10 @@ def test_sharded_hc_crossfade_and_scan(devices):
     for b in range(3):
         blk = x[:, b * 64 : (b + 1) * 64]
         state, _ = eng.step(state, c1, blk)
-        ust, _ = K.step_hc(ust, u1, blk, use_pallas=False)
+        ust, _ = K.step_hc(ust, u1, blk)
     blk = x[:, 3 * 64 : 4 * 64]
     state, out = eng.step_crossfade(state, c1, c2, blk)
-    ust, ref = K.step_hc_crossfade(ust, u1, u2, blk, interpret=True)
+    ust, ref = K.step_hc_crossfade(ust, u1, u2, blk)
     np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
                                atol=1e-5 * max(1.0, np.abs(np.asarray(ref)).max()))
 
@@ -369,7 +369,7 @@ def test_hlo_collectives_hc(devices):
 
 
 # ---------------------------------------------------------------------------
-# Sharded NON-UNIFORM engine (VERDICT r3 next #1): the pod path must run the
+# Sharded NON-UNIFORM engine: the pod path must run the
 # fastest (two-stage Gardner) engine, verified against the single-chip
 # step_nu across mesh shapes, with the minimal collective inventory.
 # ---------------------------------------------------------------------------
@@ -404,7 +404,7 @@ def test_sharded_nu_matches_single_chip(devices, c_shards, p_shards):
     for b in range(nblocks):
         blk = x[:, b * n:(b + 1) * n]
         st, o = eng.step(st, co, blk)
-        st1, o1 = NU.step_nu(st1, co1, blk, interpret=True, use_pallas=False)
+        st1, o1 = NU.step_nu(st1, co1, blk)
         scale = max(1.0, float(np.abs(np.asarray(o1)).max()))
         np.testing.assert_allclose(np.asarray(o), np.asarray(o1),
                                    atol=2e-5 * scale, err_msg=f"block {b}")
@@ -485,20 +485,16 @@ def test_sharded_nu_crossfade_protocol_matches_single_chip(devices):
         phase = b % R
         if b < warm:
             st, o = eng.step(st, co_o, blk)
-            st1, o1 = NU.step_nu(st1, u_o, blk, interpret=True,
-                                 use_pallas=False)
+            st1, o1 = NU.step_nu(st1, u_o, blk)
         elif b == warm:
             st, o = ramp(st, co_o, co_n, blk)
-            st1, o1 = NU.step_nu_crossfade(st1, u_o, u_n, blk, head_ramp=True,
-                                           interpret=True, use_pallas=False)
+            st1, o1 = NU.step_nu_crossfade(st1, u_o, u_n, blk, head_ramp=True)
         elif not fired:
             st, o = hold(st, co_o, co_n, blk)
-            st1, o1 = NU.step_nu_crossfade(st1, u_o, u_n, blk, head_ramp=False,
-                                           interpret=True, use_pallas=False)
+            st1, o1 = NU.step_nu_crossfade(st1, u_o, u_n, blk, head_ramp=False)
         else:
             st, o = eng.step(st, co_n, blk)
-            st1, o1 = NU.step_nu(st1, u_n, blk, interpret=True,
-                                 use_pallas=False)
+            st1, o1 = NU.step_nu(st1, u_n, blk)
         if b >= warm:
             fired = fired or phase == R - 1 if b > warm else phase == R - 1
         scale = max(1.0, float(np.abs(np.asarray(o1)).max()))
@@ -544,7 +540,7 @@ def test_sharded_nu_validation(devices):
 
 
 # ---------------------------------------------------------------------------
-# Collective BYTES vs COMM_MODEL.md (VERDICT r3 next #5): not just the op
+# Collective BYTES vs COMM_MODEL.md: not just the op
 # inventory — the payload of every collective is asserted against the
 # model's formulas, so fattening a collective (or adding an all-gather)
 # fails the suite.
@@ -714,7 +710,7 @@ def test_sharded_shared_coeffs_match_broadcast(devices, local):
 
 
 # ---------------------------------------------------------------------------
-# Sharded THREE-stage engine (VERDICT r4 next #3): the very-long-filter tier
+# Sharded THREE-stage engine: the very-long-filter tier
 # (session auto >= 640 partitions) must have a pod path too — verified
 # against the single-chip step_nu3 across mesh shapes, with one cp+ar pair
 # per stage at its own cadence.
@@ -760,8 +756,7 @@ def test_sharded_nu3_matches_single_chip(devices, c_shards, p_shards):
     for b in range(nblocks):
         blk = x[:, b * n:(b + 1) * n]
         st, o = eng.step(st, co, blk)
-        st1, o1 = NU.step_nu3(st1, co1, blk, interpret=True,
-                              use_pallas=False)
+        st1, o1 = NU.step_nu3(st1, co1, blk)
         scale = max(1.0, float(np.abs(np.asarray(o1)).max()))
         np.testing.assert_allclose(np.asarray(o), np.asarray(o1),
                                    atol=2e-5 * scale, err_msg=f"block {b}")

@@ -96,70 +96,10 @@ def test_block_timer():
     assert "3 blocks" in t.summary()
 
 
-def test_wisdom_executable_cache(tmp_path):
-    """engine/wisdom.py: second instance loads the serialized executable
-    (or falls back transparently when the topology is incompatible) and
-    always computes the same answer (VERDICT r2 missing #2 / next #7)."""
-    import jax
-    import jax.numpy as jnp
-
-    from bfir_tpu.engine.wisdom import Wisdom
-
-    d = str(tmp_path / "wisdom")
-    w1 = Wisdom(d)
-    f1 = w1.jit(lambda a, b: a @ b + 1.0)
-    x = jnp.full((32, 32), 2.0)
-    r1 = np.asarray(f1(x, x))
-    assert w1.misses == 1
-    import os
-
-    assert len(os.listdir(d)) == 1
-
-    w2 = Wisdom(d)
-    f2 = w2.jit(lambda a, b: a @ b + 1.0)
-    r2 = np.asarray(f2(x, x))  # load-or-fallback, never wrong
-    np.testing.assert_array_equal(r1, r2)
-
-    # different computation -> different key -> new entry
-    f3 = w2.jit(lambda a, b: a * b)
-    f3(x, x)
-    assert len(os.listdir(d)) == 2
-
-    # disabled wisdom is plain jit
-    w3 = Wisdom(None, enable=False)
-    f4 = w3.jit(lambda a: a + 1)
-    np.testing.assert_array_equal(np.asarray(f4(x)), np.asarray(x) + 1)
-
-
-def test_wisdom_retry_survives_donation(tmp_path):
-    """ADVICE r3: a deserialized executable that fails AFTER donation has
-    invalidated its donated input must still recover via the jit fallback
-    (device-side backups), not raise on a deleted buffer."""
-    import jax
-    import jax.numpy as jnp
-
-    from bfir_tpu.engine.wisdom import Wisdom
-
-    w = Wisdom(str(tmp_path / "wis"))
-
-    class Broken:
-        def __call__(self, *a):
-            # simulate donation consuming the state, then a late failure
-            jax.tree_util.tree_map(lambda l: l.delete(), a[0])
-            raise RuntimeError("simulated incompatible executable")
-
-    w._load_or_compile = lambda jitted, args: (Broken(), True)
-    g = w.jit(lambda s, x: (s + x, jnp.sum(s * x)), donate_argnums=(0,))
-    s = jnp.ones((8,))
-    x = jnp.arange(8.0)
-    s2, out = g(s, x)  # must not raise
-    np.testing.assert_allclose(np.asarray(out), float(np.arange(8.0).sum()))
-    np.testing.assert_allclose(np.asarray(s2), 1.0 + np.arange(8.0))
-
-
 def test_wisdom_key_covers_compiler_stack(monkeypatch, tmp_path):
-    """ADVICE r3: plugin/jaxlib version changes must invalidate wisdom keys
-    and self-check verdicts even under an unchanged jax.__version__."""
+    """Compiler-stack (jaxlib, backend platform_version) changes must
+    invalidate self-check verdicts even under an unchanged
+    jax.__version__."""
     from bfir_tpu.utils import hashing
 
     fp = hashing.backend_fingerprint()
@@ -167,7 +107,7 @@ def test_wisdom_key_covers_compiler_stack(monkeypatch, tmp_path):
     import jaxlib.version
 
     assert jax.__version__ in fp and jaxlib.version.__version__ in fp
-    # the PJRT platform_version slot is present (non-empty 4th field)
+    # the backend platform_version slot is present (non-empty 4th field)
     assert len(fp.split("|")) >= 6
 
     from bfir_tpu.core.spec import FilterSpec
@@ -177,13 +117,13 @@ def test_wisdom_key_covers_compiler_stack(monkeypatch, tmp_path):
     imp = np.zeros((1, 128))
     k1 = selfcheck.cache_key("hc", imp, spec, 2, 3, 80.0)
     monkeypatch.setattr(hashing, "backend_fingerprint",
-                        lambda: fp + "|other-plugin-build")
+                        lambda: fp + "|other-compiler-build")
     k2 = selfcheck.cache_key("hc", imp, spec, 2, 3, 80.0)
     assert k1 != k2
 
 
 def test_selfcheck_failure_verdict_expires(tmp_path):
-    """ADVICE r3: cached FAILED verdicts age out (FAILURE_TTL_S) so a fixed
+    """Cached FAILED verdicts age out (FAILURE_TTL_S) so a fixed
     backend/transient can't demote an engine forever; passes never expire."""
     import json
 
@@ -206,9 +146,8 @@ def test_selfcheck_failure_verdict_expires(tmp_path):
 
 def test_selfcheck_cached_pass_spot_checked(tmp_path, monkeypatch):
     """A cached PASS verdict no longer short-circuits blindly: a 2-block
-    spot check runs against the oracle (the miscompile class turned
-    non-deterministic on a 2026-08-21 plugin build — MISCOMPILE_r04.json),
-    and a contradicted cache triggers the full re-check."""
+    spot check runs against the oracle (a miscompile need not be
+    deterministic), and a contradicted cache triggers the full re-check."""
     import jax.numpy as jnp
 
     from bfir_tpu.core.spec import FilterSpec

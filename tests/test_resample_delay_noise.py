@@ -125,6 +125,36 @@ def test_fractional_delay_interpolates():
     np.testing.assert_allclose(y[seg], ref[seg], atol=5e-4)
 
 
+@pytest.mark.parametrize("delays,substeps", [([2, 5], [1, -3]),
+                                             ([0, 7], [3, 0])])
+def test_fractional_delay_float32_matches_f64_bank(delays, substeps):
+    """The float32 line against a float64 literal of the same law,
+    y[t] = sum_j h[j] x[t - d - j] with h the float64 bank row, within the
+    rounding of a (K+2)-term f32 sum: a contraction that drops to TF32
+    (10-bit mantissa) misses this bound by ~1000x."""
+    c, n, blocks = 2, 64, 3
+    line = dl.FractionalDelayLine(c, max_delay=8, step_count=4, half_length=8)
+    bank = dl.sinc_interp_bank(step_count=4, half_length=8)
+    x = np.random.default_rng(5).standard_normal((c, blocks * n)).astype(
+        np.float32)
+    st = line.init_state()
+    outs = []
+    for b in range(blocks):
+        st, o = line(st, x[:, b * n:(b + 1) * n], np.array(delays),
+                     np.array(substeps))
+        outs.append(np.asarray(o, np.float64))
+    y = np.concatenate(outs, axis=1)
+    k = bank.shape[1]
+    for ch in range(c):
+        h = bank[substeps[ch] + 3]
+        xs = np.r_[np.zeros(delays[ch]), x[ch].astype(np.float64)]
+        ref = np.convolve(xs, h)[:blocks * n]
+        mag = np.convolve(np.abs(xs), np.abs(h))[:blocks * n]
+        err = np.abs(y[ch] - ref)
+        assert np.all(err <= (k + 2) * np.finfo(np.float32).eps * mag
+                      + 1e-30), float(np.max(err / (mag + 1e-30)))
+
+
 # --------------------------------------------------------------------------
 # noise probe (preprocessor::calculate_attenuation)
 # --------------------------------------------------------------------------

@@ -1,5 +1,5 @@
 """Any-format impulse IO: FLAC codec, AIFF reader, sndio dispatch, and
-chain integration (VERDICT r1 missing #3 / next #7; reference behavior:
+chain integration (reference behavior:
 buffer.cpp:37-139 loads impulses via libsndfile, any format)."""
 
 import struct
@@ -307,7 +307,7 @@ def test_coeffio_load_sound_flac(tmp_path):
     np.testing.assert_allclose(h, imp, atol=2 ** -22)
 
 
-# -- AU / CAF (round-3 additions: VERDICT r2 missing #3 tail) ---------------
+# -- AU / CAF ---------------------------------------------------------------
 
 
 def _sine(frames=500, ch=2):
@@ -444,7 +444,7 @@ def test_au_caf_malformed_files_raise_cleanly(tmp_path):
 
 
 def test_caf_truncated_desc_raises_named_error(tmp_path):
-    """ADVICE r3: truncation INSIDE the 32-byte desc body must raise the
+    """Truncation INSIDE the 32-byte desc body must raise the
     named ValueError, not leak struct.error."""
     import struct
 
@@ -462,7 +462,7 @@ def test_caf_truncated_desc_raises_named_error(tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# libsndfile major-format matrix (VERDICT r3 next #8): every major format ID
+# libsndfile major-format matrix: every major format ID
 # of /root/reference/libsndfile/sndfile.h:48-73 either decodes natively or
 # raises a ValueError NAMING the detected format — never a silent failure.
 # ---------------------------------------------------------------------------
@@ -649,7 +649,7 @@ def test_rf64_and_w64_read_natively(tmp_path):
     assert sndio.read_info(pw).n_frames == 48
 
 
-# -- Ogg/Vorbis via system libvorbis (io/oggvorbis.py, VERDICT r4 #3) --------
+# -- Ogg/Vorbis via system libvorbis (io/oggvorbis.py) --------
 
 
 def _vorbis_available():
